@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""Where the time of one video step goes in the PyTorch/CUDA port, on the
+card.
+
+Drives the port's main path (trained AFB-URR, 1080p synthetic frames at
+the 480 operating point, two objects, 250,000-feature budget) and reports,
+for a bank at the main path's occupancy and for a full bank (98,304 slots
+per object):
+
+- per-stage milliseconds of a step, each stage synchronised on both sides
+  (host clock; the syncs add to these steps' time): query encode, bank read (read + count kernels), decode,
+  usage, memorize, bank update, the device largest-CC cleanup, and the rest
+  (normalise, resizes, packing);
+- the unsynchronised step time: the wall time of a run of steps with no
+  synchronisation but the engine's own, timed with CUDA events at its two
+  ends;
+- from ``torch.profiler`` over a further run of unsynchronised steps:
+  device time by kernel group. The device's idle share is one minus that
+  busy time per step over the unsynchronised step time. The profiler's own
+  host overhead stretches its window, whose wall time is reported apart.
+
+Run from the repository root on a GPU machine:
+
+    python3 scripts/profile_torch_step.py
+
+Prints one JSON line per bank state.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402  (synthetic frames)
+from vfloodnet_tpu_torch.memory import FeatureBank  # noqa: E402
+from vfloodnet_tpu_torch.models import afb_urr  # noqa: E402
+from vfloodnet_tpu_torch.pipelines import video_seg  # noqa: E402
+from vfloodnet_tpu_torch.pipelines.loaders import (  # noqa: E402
+    default_checkpoint, load_afb_urr)
+
+STEPS = 6
+
+
+def _timed(fn, name, acc):
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[name].append(1e3 * (time.perf_counter() - t))
+        return out
+    return wrapper
+
+
+def _group(name):
+    n = name.lower()
+    if "read_kernel" in n:
+        return "bank_read_kernel"
+    if "count_kernel" in n:
+        return "bank_count_kernel"
+    if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "winograd",
+                            "fft", "nchw", "nhwc")):
+        return "convolution"
+    if any(s in n for s in ("gemm", "sgemm", "cutlass", "ampere", "sm90")):
+        return "gemm"
+    if "sort" in n or "radix" in n:
+        return "sort"
+    if "upsample" in n or "interp" in n:
+        return "resize"
+    return "other"
+
+
+def stage_breakdown(eng, state, frames, first_idx):
+    acc = defaultdict(list)
+    model, fb = eng.model, eng.fb
+    saved = (model.encode_query, model.decode_with_memory, model.memorize,
+             fb.record_usage, fb.update, afb_urr.bank_attention_read,
+             video_seg.device_largest_cc)
+    model.encode_query = _timed(model.encode_query, "query_encode", acc)
+    model.decode_with_memory = _timed(model.decode_with_memory, "decode", acc)
+    model.memorize = _timed(model.memorize, "memorize", acc)
+    fb.record_usage = _timed(fb.record_usage, "usage", acc)
+    fb.update = _timed(fb.update, "bank_update", acc)
+    afb_urr.bank_attention_read = _timed(afb_urr.bank_attention_read,
+                                         "bank_read", acc)
+    video_seg.device_largest_cc = _timed(video_seg.device_largest_cc,
+                                         "largest_cc", acc)
+    try:
+        for i, f in enumerate(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, lab = eng.step(state, f, first_idx + i)
+            torch.cuda.synchronize()
+            acc["step"].append(1e3 * (time.perf_counter() - t))
+    finally:
+        (model.encode_query, model.decode_with_memory, model.memorize,
+         fb.record_usage, fb.update, afb_urr.bank_attention_read,
+         video_seg.device_largest_cc) = saved
+        for name in ("encode_query", "decode_with_memory", "memorize"):
+            model.__dict__.pop(name, None)
+        for name in ("record_usage", "update"):
+            fb.__dict__.pop(name, None)
+    med = {k: float(np.median(v)) for k, v in acc.items()}
+    med["rest"] = med["step"] - sum(v for k, v in med.items() if k != "step")
+    return state, med
+
+
+def unsynced_steps(eng, state, frames, first_idx):
+    """Milliseconds per step over ``frames`` with no synchronisation but
+    the engine's own, from CUDA events at the run's two ends."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for i, f in enumerate(frames):
+        state, _ = eng.step(state, f, first_idx + i)
+    b.record()
+    b.synchronize()
+    return state, a.elapsed_time(b) / len(frames)
+
+
+def device_profile(eng, state, frames, first_idx):
+    """Device kernel time by group over ``frames`` (after one profiled
+    warm-up step, so that the profiler's own start-up is not in the
+    window), and the window's own wall time per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        state, _ = eng.step(state, frames[0], first_idx)
+        torch.cuda.synchronize()
+    frames = frames[1:]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for i, f in enumerate(frames):
+            state, lab = eng.step(state, f, first_idx + 1 + i)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t)
+    groups = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:   # kernels only, once each
+            continue
+        groups[_group(evt.key)] += evt.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    n = len(frames)
+    return state, {
+        "profiled_wall_ms_per_step": wall_ms / n,
+        "device_ms_per_step": busy / n,
+        "device_ms_per_step_by_group": {k: v / n for k, v in
+                                        sorted(groups.items())}}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_torch_step: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    model = load_afb_urr(default_checkpoint("video"), device=dev)
+    fb = FeatureBank(obj_n=2, memory_budget=250_000, device=dev)
+    eng = video_seg.VideoSegEngine(model, fb, downsample=480,
+                                   postprocess="device")
+    frames, mask0 = chip_smoke.synthetic_clip(1 + 3 + 3 * STEPS + 1, 1080,
+                                              1920, 0)
+    state = eng.bootstrap(frames[0], mask0)
+    for i, f in enumerate(frames[1:4]):          # warm-up
+        state, _ = eng.step(state, f, i + 1)
+    for bank in ("main_path", "full_bank"):
+        if bank == "full_bank":
+            g = torch.Generator(device=dev).manual_seed(2)
+            state.keys.normal_(generator=g)
+            state.values.normal_(generator=g)
+            state.valid.fill_(True)
+            state.usage.uniform_(0.0, 5.0, generator=g)
+            state.birth.zero_()
+            state.occ.fill_(state.capacity)
+        occ = state.occ.tolist()
+        state, stages = stage_breakdown(eng, state, frames[4:4 + STEPS], 20)
+        state, step_ms = unsynced_steps(eng, state,
+                                        frames[4 + STEPS:4 + 2 * STEPS], 30)
+        state, prof = device_profile(eng, state,
+                                     frames[4 + 2 * STEPS:], 40)
+        row = {"bank": bank, "occ_at_start": occ, "card": smi,
+               "weights": "trained", "steps": STEPS,
+               "stage_ms_median": stages,
+               "unsynced_step_ms": step_ms, **prof,
+               "device_idle_share": 1.0 - prof["device_ms_per_step"] / step_ms}
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""The CUDA bank read and count kernels against their plain PyTorch
+versions, on the card. Marked ``cuda``; each test skips where there is no
+GPU. Run on a GPU machine with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
+(``tests/conftest.py`` sets up JAX, which this file does not need).
+
+Tolerances: mem rtol 2e-4, atol 2e-5; counts |diff| <= 1 per slot.
+"""
+
+import math
+
+import pytest
+import torch
+
+from vfloodnet_tpu_torch.ops import attention, bank_read_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bank(dev, obj, n, p, seed, prefix=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randn(obj, n, 128, device=dev, generator=g)
+    values = torch.randn(obj, n, 512, device=dev, generator=g)
+    valid = torch.rand(obj, n, device=dev, generator=g) < 0.8
+    if prefix is not None:
+        valid[:, prefix:] = False
+    q = 3.0 * torch.randn(p, 128, device=dev, generator=g)
+    return keys, values, valid.contiguous(), q
+
+
+# Valid slots past the bound stay valid (prefix None), so a kernel that
+# ignored the bound would disagree with the plain bounded read.
+@pytest.mark.parametrize("n,p,chunk,occ,prefix", [
+    (1000, 37, 256, None, None),    # ragged N and P, no bound
+    (1000, 37, 256, 300, None),     # bound cuts to 2 of 4 chunks
+    (1000, 16, 256, 1000, None),    # ragged last chunk padded to 1024
+    (640, 1, 128, 0, 0),            # empty bound, all invalid: one chunk
+    (20000, 100, 8192, 9000, None),  # the main path's chunk
+])
+def test_kernels_match_plain(dev, n, p, chunk, occ, prefix):
+    keys, values, valid, q = _bank(dev, 2, n, p, seed=n + p,
+                                   prefix=prefix)
+    occ_t = None if occ is None else torch.tensor([occ], dtype=torch.int32,
+                                                  device=dev)
+    mem, m, l = bank_read_cuda.bank_read(q, keys, values, valid, occ_t, chunk)
+    log_thres = math.log(1e-3) + torch.log(l) + m
+    cnt = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres, chunk)
+    for o in range(2):
+        if occ is None:
+            want_mem, want_cnt = attention._read_dense(
+                keys[o], values[o], valid[o], q, 1e-3)
+        else:
+            want_mem, wm, wl = attention._read_occ_sweep(
+                keys[o], values[o], valid[o], q, chunk, occ)
+            torch.testing.assert_close(m[o], wm, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(l[o], wl, rtol=1e-4, atol=0)
+            want_cnt = attention._count_occ_sweep(
+                keys[o], valid[o], q, log_thres[o], chunk, occ)
+        torch.testing.assert_close(mem[o], want_mem, rtol=2e-4, atol=2e-5)
+        assert (cnt[o] - want_cnt).abs().max().item() <= 1.0
+
+
+def test_all_invalid_bank(dev):
+    keys, values, _, q = _bank(dev, 2, 700, 20, seed=3)
+    valid = torch.zeros(2, 700, dtype=torch.bool, device=dev)
+    mem, cnt = attention.bank_attention_read(keys, values, valid, q,
+                                             occ_bound=700)
+    assert torch.isfinite(mem).all() and cnt.sum().item() == 0
+    want = attention._read_dense(keys[0], values[0], valid[0], q, 1e-3)[0]
+    torch.testing.assert_close(mem[0], want, rtol=2e-4, atol=2e-5)
+
+
+def test_dispatcher_counts_launches_and_refuses_bad_input(dev):
+    keys, values, valid, q = _bank(dev, 2, 512, 24, seed=5)
+    bank_read_cuda.reset_launches()
+    attention.bank_attention_read(keys, values, valid, q,
+                                  occ_bound=torch.tensor(300, device=dev))
+    assert bank_read_cuda.launches == {"bank_read": 1, "bank_count": 1}
+    with pytest.raises(ValueError):
+        attention.bank_attention_read(keys, values, valid, q.double())
+    with pytest.raises(ValueError):
+        attention.bank_attention_read(keys[:, :, :64].contiguous(),
+                                      values, valid, q[:, :64].contiguous())

@@ -1,0 +1,87 @@
+"""Weight bridge: the JAX package's AFB-URR variables -> the port's
+``state_dict``.
+
+Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
+the Flax variables themselves, as numpy), ``params/...`` and
+``batch_stats/...`` with '/'-joined Flax module paths. Output: a
+``state_dict`` for :class:`vfloodnet_tpu_torch.models.AFBURR`.
+
+- Conv kernels go from HWIO to OIHW.
+- FrozenBN: ``weight = scale / sqrt(var + 1e-5)``; ``bias`` and ``mean`` are
+  kept as they are.
+- The memory encoder's stem kernels for the frame, the mask and the inverse
+  mask (``conv1``, ``conv1_m``, ``conv1_o``) are concatenated along the
+  input channels into one 5-plane stem.
+- The key and value heads are concatenated along the output channels into
+  one 1024 -> 640 conv.
+- ``layerK/blockB`` becomes ``layerK.B``.
+
+Every Flax array is used exactly once; a key left over raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .checkpoint import flatten
+
+BN_EPS = 1e-5
+
+
+def _oihw(kernel: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))
+
+
+def _port_path(path: str) -> str:
+    return re.sub(r"/block(\d+)", r".\1", path).replace("/", ".")
+
+
+def convert_afb_urr_variables(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    flat = flatten(variables)
+    used = set()
+
+    def take(key: str) -> np.ndarray:
+        if key in used:
+            raise KeyError(f"{key} used twice")
+        used.add(key)
+        return np.asarray(flat[key], np.float32)
+
+    out: Dict[str, np.ndarray] = {}
+    stem_m = "params/encoder_m/backbone/conv1/kernel"
+    out["encoder_m.backbone.conv1.weight"] = _oihw(np.concatenate(
+        [take(stem_m), take("params/encoder_m/conv1_m/kernel"),
+         take("params/encoder_m/conv1_o/kernel")], axis=2))
+    kv = "params/keyval_r4/"
+    out["keyval_r4.conv.weight"] = _oihw(np.concatenate(
+        [take(kv + "key/kernel"), take(kv + "value/kernel")], axis=3))
+    out["keyval_r4.conv.bias"] = np.concatenate(
+        [take(kv + "key/bias"), take(kv + "value/bias")])
+
+    for key in sorted(flat):
+        if key in used or not key.startswith("params/"):
+            continue
+        path, leaf = key[len("params/"):].rsplit("/", 1)
+        port = _port_path(path)
+        if leaf == "kernel":
+            out[port + ".weight"] = _oihw(take(key))
+        elif leaf == "bias":
+            out[port + ".bias"] = take(key)
+        elif leaf == "scale":          # FrozenBN
+            var = take(f"batch_stats/{path}/var")
+            scale = take(key)
+            out[port + ".weight"] = scale * np.reciprocal(
+                np.sqrt(var + np.float32(BN_EPS)))
+            out[port + ".mean"] = take(f"batch_stats/{path}/mean")
+        else:
+            raise KeyError(f"unexpected Flax array {key}")
+
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}

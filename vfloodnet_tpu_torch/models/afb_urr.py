@@ -1,0 +1,228 @@
+"""AFB-URR video segmentation network (counterpart of
+``vfloodnet_tpu.models.afb_urr``), inference only.
+
+A ResNet-50 memory encoder over (frame, mask, inverse mask), a ResNet-50
+query encoder, a 3x3-conv key/value head (1024 -> 128 + 512), the memory
+read against the feature bank (:func:`..ops.bank_attention_read`, the CUDA
+kernels on the card), and a two-stage decoder with uncertainty-gated local
+refinement.
+
+The public methods keep the JAX package's layout: frames NHWC in [0, 1],
+masks [obj_n, H, W], keys and values [n, P, d] with P = h16 * w16 in
+row-major order, the bank [obj_n, N, d]. Inside, the convolutions run NCHW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import (bank_attention_read, calc_uncertainty, local_avg_pool,
+                   local_max_pool, pad_divide_by, unpad)
+from .resnet import ResNet50Backbone
+
+KEYDIM, VALDIM = 128, 512
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _normalize(frame: torch.Tensor) -> torch.Tensor:
+    mean = frame.new_tensor(IMAGENET_MEAN)[None, :, None, None]
+    std = frame.new_tensor(IMAGENET_STD)[None, :, None, None]
+    return (frame - mean) / std
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear, half-pixel centres (align_corners=False)."""
+    return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                         mode="bilinear", align_corners=False)
+
+
+def _conv3(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block (reference AFB_URR.py:10-30); the
+    checkpoint's blocks all keep their width, so there is no downsample."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = _conv3(channels, channels)
+        self.conv2 = _conv3(channels, channels)
+
+    def forward(self, x):
+        return x + self.conv2(F.relu(self.conv1(F.relu(x))))
+
+
+class Refine(nn.Module):
+    """Skip refinement with 2x upsample (AFB_URR.py:114-127), split into
+    the object-independent :meth:`skip` and the per-object :meth:`refine`."""
+
+    def __init__(self, cin: int, channels: int):
+        super().__init__()
+        self.convFS = _conv3(cin, channels)
+        self.ResFS = ResBlock(channels)
+        self.ResMM = ResBlock(channels)
+
+    def skip(self, f):
+        return self.ResFS(self.convFS(f))
+
+    def refine(self, s, pm):
+        return self.ResMM(s + _upsample2(pm))
+
+
+class EncoderM(nn.Module):
+    """Memory encoder over frame + mask + inverse mask (AFB_URR.py:33-63):
+    one 5-plane stem, the reference's conv1(f) + conv1_m(m) + conv1_o(o)."""
+
+    def __init__(self):
+        super().__init__()
+        self.backbone = ResNet50Backbone(in_channels=5)
+
+    def forward(self, frame, mask, mask_inv):
+        """frame [n, 3, H, W] in [0, 1]; mask, mask_inv [n, 1, H, W]."""
+        x = torch.cat([_normalize(frame), mask, mask_inv], dim=1)
+        r4, _, _, r1 = self.backbone(x)
+        return r4, r1
+
+
+class EncoderQ(nn.Module):
+    """Query encoder (AFB_URR.py:66-93)."""
+
+    def __init__(self):
+        super().__init__()
+        self.backbone = ResNet50Backbone(in_channels=3)
+
+    def forward(self, frame):
+        return self.backbone(_normalize(frame))
+
+
+class KeyValue(nn.Module):
+    """Key and value heads (AFB_URR.py:96-111) as one 1024 -> dk + dv
+    conv. Returns key [n, P, dk] and value [n, P, dv]."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = _conv3(1024, KEYDIM + VALDIM)
+
+    def forward(self, x):
+        n, _, h, w = x.shape
+        out = self.conv(x).permute(0, 2, 3, 1).reshape(n, h * w, -1)
+        return out[..., :KEYDIM], out[..., KEYDIM:]
+
+
+class Decoder(nn.Module):
+    """Global decode + uncertainty-gated local refinement
+    (AFB_URR.py:181-239)."""
+
+    def __init__(self, mdim_global: int = 256, mdim_local: int = 32,
+                 local_size: int = 7):
+        super().__init__()
+        self.local_size = local_size
+        self.convFM = _conv3(1024, mdim_global)
+        self.ResMM = ResBlock(mdim_global)
+        self.RF3 = Refine(512, mdim_global)
+        self.RF2 = Refine(256, mdim_global)
+        self.pred2 = _conv3(mdim_global, 2)
+        self.local_convFM = _conv3(128, mdim_local)
+        self.local_ResMM = ResBlock(mdim_local)
+        self.local_pred2 = _conv3(mdim_local, 2)
+
+    def forward(self, patch_match, r3, r2, r1, bs: int, obj_n: int):
+        """patch_match [bs*obj_n, 1024, h16, w16]; skips r3, r2, r1 per
+        batch [bs, C, h, w]. Returns per-object foreground log-odds
+        [bs, obj_n, H, W]."""
+        def per_obj(x):
+            return x.repeat_interleave(obj_n, dim=0)
+
+        p = self.ResMM(self.convFM(patch_match))
+        p = self.RF3.refine(per_obj(self.RF3.skip(r3)), p)           # 1/8
+        p = self.RF2.refine(per_obj(self.RF2.skip(r2)), p)           # 1/4
+        r1 = per_obj(r1)
+        p = _upsample2(self.pred2(F.relu(p)))                        # 1/2
+
+        n, _, h, w = p.shape
+        rough = torch.softmax(p, dim=1)[:, 1].reshape(bs, obj_n, h, w)
+        rough = torch.softmax(rough, dim=1)          # object-level norm
+        unc = calc_uncertainty(rough, obj_axis=1)    # [bs, 1, h, w]
+        unc = unc.repeat_interleave(obj_n, dim=0)
+        rough = rough.reshape(n, 1, h, w)
+
+        r1_local = local_avg_pool(r1 * rough, self.local_size)
+        r1_local = r1_local / (local_avg_pool(rough, self.local_size) + 1e-8)
+        r1_conf = local_max_pool(rough, self.local_size)
+        q = self.local_ResMM(self.local_convFM(torch.cat([r1, r1_local], 1)))
+        q = r1_conf * self.local_pred2(F.relu(q))
+
+        p = _upsample2(p + unc * q)                                  # 1/1
+        # per-object log-odds: logit1 - logit0 of the 2-class softmax
+        score = p[:, 1] - p[:, 0]
+        return score.reshape(bs, obj_n, 2 * h, 2 * w)
+
+
+class AFBURR(nn.Module):
+    """The full AFB-URR graph (see :meth:`memorize` and :meth:`segment`)."""
+
+    def __init__(self, thres_valid: float = 1e-3):
+        super().__init__()
+        self.thres_valid = thres_valid
+        self.encoder_m = EncoderM()
+        self.encoder_q = EncoderQ()
+        self.keyval_r4 = KeyValue()
+        self.decoder = Decoder()
+
+    def memorize(self, frame: torch.Tensor, mask: torch.Tensor):
+        """frame [H, W, 3] in [0, 1], mask [obj_n, H, W] ->
+        (k4 [obj_n, P, dk], v4 [obj_n, P, dv])."""
+        obj_n = mask.shape[0]
+        frame, _ = pad_divide_by(frame[None], 16)
+        mask, _ = pad_divide_by(mask[..., None], 16)
+        frames = frame.permute(0, 3, 1, 2).expand(obj_n, -1, -1, -1)
+        mask = mask.permute(0, 3, 1, 2).to(frame.dtype)
+        r4, _ = self.encoder_m(frames, mask, torch.clamp(1.0 - mask, 0.0, 1.0))
+        return self.keyval_r4(r4)
+
+    def encode_query(self, frames: torch.Tensor):
+        """frames [B, H, W, 3] -> (k4 [B, P, dk], v4 [B, P, dv], skips
+        (r3, r2, r1), (h16, w16), pad)."""
+        frames, pad = pad_divide_by(frames, 16)
+        r4, r3, r2, r1 = self.encoder_q(frames.permute(0, 3, 1, 2))
+        k4, v4 = self.keyval_r4(r4)
+        return k4, v4, (r3, r2, r1), tuple(r4.shape[-2:]), pad
+
+    def decode_with_memory(self, mem: torch.Tensor, v4: torch.Tensor, skips,
+                           hw16, pad) -> torch.Tensor:
+        """mem [B, obj_n, P, dv] from the bank read -> score log-odds
+        [B, obj_n, H, W] at the unpadded frame size."""
+        r3, r2, r1 = skips
+        h16, w16 = hw16
+        bs, obj_n = mem.shape[:2]
+        q_val = v4[:, None].expand(bs, obj_n, -1, -1)
+        feat = torch.cat([mem, q_val], dim=-1)
+        feat = feat.reshape(bs * obj_n, h16, w16, 2 * VALDIM)
+        score = self.decoder(feat.permute(0, 3, 1, 2), r3, r2, r1, bs, obj_n)
+        return unpad(score, pad, spatial_axes=(-2, -1))
+
+    def segment(self, frames: torch.Tensor, bank_keys: torch.Tensor,
+                bank_values: torch.Tensor, bank_valid: torch.Tensor,
+                bank_occ: Optional[torch.Tensor] = None):
+        """frames [B, H, W, 3]; bank [obj_n, N, d], bank_valid [obj_n, N];
+        ``bank_occ`` [obj_n] int32 bounds the read at the occupancy ->
+        (score log-odds [B, obj_n, H, W], usage counts [obj_n, N])."""
+        k4, v4, skips, hw16, pad = self.encode_query(frames)
+        occ_bound = None if bank_occ is None else bank_occ.max()
+        mems, usage = [], None
+        for b in range(k4.shape[0]):
+            mem, cnt = bank_attention_read(bank_keys, bank_values, bank_valid,
+                                           k4[b].contiguous(),
+                                           thres=self.thres_valid,
+                                           occ_bound=occ_bound)
+            mems.append(mem)
+            usage = cnt if usage is None else usage + cnt
+        score = self.decode_with_memory(torch.stack(mems), v4, skips, hw16,
+                                        pad)
+        return score, usage

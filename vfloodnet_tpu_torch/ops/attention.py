@@ -1,0 +1,187 @@
+"""Memory-read attention over the feature bank (counterpart of
+``vfloodnet_tpu.ops.attention``).
+
+For every query pixel p of the current frame and every object,
+
+    mem[p] = sum_n softmax_n(q_p . k_n / sqrt(dk)) v_n
+
+over the object's valid bank slots, plus the per-slot usage count that
+drives the bank's LFU eviction,
+
+    cnt[n] = #{p : softmax_n(q_p . k / sqrt(dk)) > thres}.
+
+On CUDA tensors the read and the count are the hand-written kernels of
+``csrc/bank_read.cu`` (:mod:`.bank_read_cuda`). On CPU tensors the plain
+versions below run; they repeat the JAX package's three variants (dense,
+chunked and occupancy-bounded), and the tests hold each against its JAX
+counterpart. A CUDA tensor never takes a plain version.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import bank_read_cuda
+
+NEG_INF = -1e30
+
+# The dense read is used while the [P, N] score matrix stays under this many
+# elements (as in the JAX package).
+DENSE_SCORE_ELEMENTS = 256 * 1024 * 1024
+
+# Chunk of the occupancy-bounded read: the bound is rounded up to a multiple
+# of it (the kernels apply the same rounding).
+OCC_CHUNK = 8192
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    if rows == x.shape[0]:
+        return x
+    pad = x.new_zeros((rows - x.shape[0],) + x.shape[1:])
+    return torch.cat([x, pad])
+
+
+def _read_dense(keys, values, valid, q, thres):
+    """One-shot read with the [P, N] score matrix. keys [N, dk], values
+    [N, dv], valid [N] bool, q [P, dk] -> (mem [P, dv], cnt [N])."""
+    scale = 1.0 / math.sqrt(keys.shape[1])
+    s = (q @ keys.T) * scale
+    s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
+    m = s.max(dim=1, keepdim=True).values
+    e = torch.exp(s - m)
+    l = e.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    mem = (e * (1.0 / l)) @ values
+    cnt = ((e > thres * l) & valid[None, :]).sum(dim=0).to(torch.float32)
+    return mem, cnt
+
+
+def _read_chunked(keys, values, valid, q, thres, chunk):
+    """Online-softmax read over all bank chunks, then a second sweep for
+    the counts (the JAX package's ``_xla_read``): the occupancy-bounded
+    read with the whole bank as its bound."""
+    return _read_occ(keys, values, valid, q, thres, chunk, keys.shape[0])
+
+
+def _online_step(m, l, acc, q, k_c, v_c, ok, scale):
+    s = (q @ k_c.T) * scale
+    s = torch.where(ok[None, :], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.max(dim=1).values)
+    alpha = torch.exp(m - m_new)
+    e = torch.exp(s - m_new[:, None])
+    l_new = l * alpha + e.sum(dim=1)
+    return m_new, l_new, acc * alpha[:, None] + e @ v_c
+
+
+def _count_chunk(q, k_c, ok, log_thres, scale):
+    s = (q @ k_c.T) * scale
+    hit = (s > log_thres[:, None]) & ok[None, :]
+    return hit.sum(dim=0).to(torch.float32)
+
+
+def visited_slots(n: int, chunk: int, occ_bound: int) -> int:
+    """Slots the occupancy-bounded read visits: the first
+    ``clip(ceil(occ_bound / c), 1, ceil(n / c))`` chunks of ``c = min(chunk,
+    n)`` slots. Slots at index >= n inside them are zero padding."""
+    c = min(chunk, n)
+    n_iter = min(max(-(-int(occ_bound) // c), 1), -(-n // c))
+    return n_iter * c
+
+
+def _read_occ_sweep(keys, values, valid, q, chunk, occ_bound):
+    """First sweep of the occupancy-bounded read (the JAX package's
+    ``_xla_read_occ``): only the visited chunks, with the valid mask applied
+    inside each. -> (mem [P, dv], m [P], l [P]), l clamped at 1e-30."""
+    n, dk = keys.shape
+    n_visit = visited_slots(n, chunk, occ_bound)
+    c = min(chunk, n)
+    rows = max(n, n_visit)
+    keys_p, values_p = _pad_rows(keys, rows), _pad_rows(values, rows)
+    valid_p = _pad_rows(valid, rows)
+    scale = 1.0 / math.sqrt(dk)
+    p_n = q.shape[0]
+    m = q.new_full((p_n,), NEG_INF)
+    l = q.new_zeros((p_n,))
+    acc = q.new_zeros((p_n, values.shape[1]))
+    for start in range(0, n_visit, c):
+        m, l, acc = _online_step(m, l, acc, q, keys_p[start:start + c],
+                                 values_p[start:start + c],
+                                 valid_p[start:start + c], scale)
+    l = l.clamp_min(1e-30)
+    return acc / l[:, None], m, l
+
+
+def _count_occ_sweep(keys, valid, q, log_thres, chunk, occ_bound):
+    """Second sweep of the occupancy-bounded read: usage counts of the
+    visited slots (0 beyond). log_thres [P] = log(thres) + log(l) + m."""
+    n, dk = keys.shape
+    n_visit = min(visited_slots(n, chunk, occ_bound), n)
+    scale = 1.0 / math.sqrt(dk)
+    cnt = q.new_zeros((n,))
+    c = min(chunk, n)
+    for start in range(0, n_visit, c):
+        stop = min(start + c, n_visit)
+        cnt[start:stop] = _count_chunk(q, keys[start:stop], valid[start:stop],
+                                       log_thres, scale)
+    return cnt
+
+
+def _read_occ(keys, values, valid, q, thres, chunk, occ_bound):
+    mem, m, l = _read_occ_sweep(keys, values, valid, q, chunk, occ_bound)
+    log_thres = math.log(thres) + torch.log(l) + m
+    return mem, _count_occ_sweep(keys, valid, q, log_thres, chunk, occ_bound)
+
+
+def read_plain(keys, values, valid, q, thres=1e-3, chunk=4096,
+               occ_bound: Optional[int] = None):
+    """Single-object plain read with the JAX package's variant selection:
+    occupancy-bounded when a bound is given and the bank is larger than one
+    occupancy chunk, else dense when the scores fit, else chunked."""
+    if occ_bound is not None and keys.shape[0] > OCC_CHUNK:
+        return _read_occ(keys, values, valid, q, thres, OCC_CHUNK,
+                         int(occ_bound))
+    if keys.shape[0] * q.shape[0] <= DENSE_SCORE_ELEMENTS:
+        return _read_dense(keys, values, valid, q, thres)
+    return _read_chunked(keys, values, valid, q, thres, chunk)
+
+
+def bank_attention_read(keys: torch.Tensor, values: torch.Tensor,
+                        valid: torch.Tensor, q: torch.Tensor,
+                        thres: float = 1e-3, chunk: int = 4096,
+                        occ_bound=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax memory read of every object's bank.
+
+    Args:
+      keys [obj, N, dk], values [obj, N, dv], valid [obj, N] bool,
+      q [P, dk] query pixels; ``thres``: usage probability threshold
+      (reference Matcher.thres_valid = 1e-3); ``chunk``: bank chunk of the
+      plain chunked read; ``occ_bound``: optional bound on the highest
+      valid slot + 1 over all objects (an int, or a 0-d int32 tensor on the
+      bank's device, which the kernels read without a host sync). With a
+      bound, only ``ceil(occ_bound / OCC_CHUNK)`` chunks are visited.
+
+    Returns: mem [obj, P, dv], cnt [obj, N] float32.
+    """
+    if keys.is_cuda:
+        return _kernel_read(keys, values, valid, q, thres, occ_bound)
+    bound = None if occ_bound is None else int(occ_bound)
+    outs = [read_plain(keys[o], values[o], valid[o], q, thres, chunk, bound)
+            for o in range(keys.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def _kernel_read(keys, values, valid, q, thres, occ_bound):
+    if occ_bound is not None and not torch.is_tensor(occ_bound):
+        occ_bound = torch.tensor(int(occ_bound), dtype=torch.int32,
+                                 device=keys.device)
+    if occ_bound is not None:
+        occ_bound = occ_bound.to(torch.int32).reshape(1)
+    mem, m, l = bank_read_cuda.bank_read(q, keys, values, valid, occ_bound,
+                                         OCC_CHUNK)
+    log_thres = math.log(thres) + torch.log(l) + m
+    cnt = bank_read_cuda.bank_count(q, keys, valid, occ_bound, log_thres,
+                                    OCC_CHUNK)
+    return mem, cnt

@@ -1,0 +1,45 @@
+"""Model construction and weight loading (counterpart of
+``vfloodnet_tpu.pipelines.loaders``)."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from ..core import convert_afb_urr_variables, load_flat_npz, resolve_device
+from ..models import AFBURR
+
+_RECORDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "records", "checkpoints")
+
+
+def default_checkpoint(kind: str = "video") -> str:
+    """Path of the bundled trained flat-npz checkpoint of ``kind``."""
+    return os.path.join(_RECORDS, kind, "best.npz")
+
+
+def load_afb_urr(model_path: Optional[str] = None,
+                 device="cuda") -> AFBURR:
+    """AFB-URR with weights from a flat ``.npz`` checkpoint of the JAX
+    package (default: the bundled trained one), converted by the weight
+    bridge and moved to ``device``, in eval mode."""
+    model_path = model_path or default_checkpoint("video")
+    if not model_path.endswith(".npz"):
+        raise ValueError(f"expected a flat .npz checkpoint, got {model_path}")
+    device = resolve_device(device)
+    model = AFBURR()
+    model.load_state_dict(convert_afb_urr_variables(load_flat_npz(model_path)))
+    return model.to(device).eval()
+
+
+def cast_floating_params(model: torch.nn.Module,
+                         dtype: torch.dtype) -> torch.nn.Module:
+    """Cast conv kernels (floating parameters with ndim >= 2) to ``dtype``
+    in place, keeping biases and frozen-BN buffers float32, as the JAX
+    package's helper does for a reduced-precision engine."""
+    for param in model.parameters():
+        if param.ndim >= 2 and param.is_floating_point():
+            param.data = param.data.to(dtype)
+    return model
