@@ -8,31 +8,44 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one line with its elapsed seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build: ``nvcc`` builds the bank read / count kernels into
-   ``vfloodnet_tpu_torch/_build/``.
+2. build: ``nvcc`` builds the bank read, combine and count kernels into
+   ``vfloodnet_tpu_torch/_build/``; each kernel's registers and spills
+   (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump -sass``:
+   the read and the count must hold ``HMMA`` in TF32).
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (P = 1620 query pixels, dk = 128, dv = 512, N = 98,304 slots,
    2 objects) for a full bank, a bound of 20,000 with valid slots past it
-   (so a kernel that ignored the bound would disagree), an all-invalid bank
-   and an all-invalid bank at occupancy 0 (one chunk visited); times
-   of the kernel, the plain version and one ``scaled_dot_product_attention``
-   call as a yardstick (the port never calls it).
+   (so a kernel that ignored the bound would disagree), an all-invalid bank,
+   an all-invalid bank at occupancy 0 (one chunk visited), P = 37 on a
+   ragged bank of 20,000 slots, and a bound that ends inside the last of 5
+   bank segments; the combine kernel against ``combine_partials`` on the
+   read kernel's own partials; times of each kernel, its plain version, one
+   ``scaled_dot_product_attention`` call as the read's yardstick and the
+   cuBLAS float32 ``q @ keys^T`` of the count's scores as its reference
+   (the port calls neither).
 4. main path: the trained AFB-URR (``records/checkpoints/video/best.npz``
    through the weight bridge) segments eight synthetic 1080p frames at the
    480 operating point
-   with the device largest-CC cleanup; the kernels' launch counts of this
-   run; then the same engine on a small clip against itself on the CPU,
-   where the plain versions run.
+   with the device largest-CC cleanup; the read, combine and count must
+   each launch once per frame; then the same engine on a small clip
+   against itself on the CPU, where the plain versions run.
 5. full bank: the bank filled to capacity, two steps with LFU eviction.
 
 Then one JSON line of the kernels' numbers and, last, ``{"ok": true,
-"device": {...}}``. Any failed check raises and the exit code is not 0; the
+"device": {...}}``. In the JSON line, ``bank_read`` times the read with its
+combine (the function that its plain version and the yardstick compute)
+and gives the read kernel alone as ``read_kernel_ms``; ``bound_ms`` is the
+3xTF32 tensor-core bound (three times the flop at 495 TFLOP/s, against the
+bytes at 3.35 TB/s) and ``bound_f32_cuda_cores_ms`` the float32 CUDA-core
+one (67 TFLOP/s). Any failed check raises and the exit code is not 0; the
 script exits 1 with no result when CUDA is absent.
 """
 
 import copy
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +65,7 @@ P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
 THRES = 1e-3
 MEM_TOL = dict(rtol=2e-4, atol=2e-5)
 F32_PEAK = 67e12     # H100 SXM float32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12   # H100 SXM bytes/s
 SEED = 0
 DEV = torch.device("cuda")
@@ -98,26 +112,95 @@ def device_phase():
         f"{torch.backends.cudnn.allow_tf32}")
 
 
+def _ptxas_report(log):
+    """Per kernel: registers and spill bytes from the
+    ``-Xptxas -v`` report of the build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in ("read_kernel", "combine_kernel",
+                                     "count_kernel") if k in m.group(1)),
+                        m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_store_bytes"] = int(m.group(1))
+            out[name]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _sass_mma(lib_path):
+    """Per kernel: the tensor-core instructions (``HMMA``) in the
+    library's SASS and their forms, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = next((k for k in ("read_kernel", "combine_kernel",
+                                     "count_kernel") if k in m.group(1)),
+                        m.group(1))
+            out[name] = {"hmma": 0, "forms": set()}
+            continue
+        m = re.search(r"\b(HMMA\.\S+)", line)
+        if m and name is not None:
+            out[name]["hmma"] += 1
+            out[name]["forms"].add(m.group(1))
+    return {k: {"hmma": v["hmma"], "forms": sorted(v["forms"])}
+            for k, v in out.items()}
+
+
 def build_phase():
     t = time.perf_counter()
     path = bank_read_cuda.build()
     log("build", f"{path} in {time.perf_counter() - t:.2f}s (nvcc "
         f"{bank_read_cuda.build_seconds})")
+    ptxas = _ptxas_report(bank_read_cuda.build_log or "")
+    sass = _sass_mma(path)
+    for name in ("read_kernel", "combine_kernel", "count_kernel"):
+        log("build", f"{name}: ptxas {ptxas.get(name)}, SASS "
+            f"{sass.get(name)}")
+    for name in ("read_kernel", "count_kernel"):
+        check(sass.get(name, {}).get("hmma", 0) > 0 and
+              all("TF32" in f for f in sass[name]["forms"]),
+              f"{name} runs on the tensor cores in TF32")
+    return {name: {**ptxas.get(name, {}), "sass_mma": sass.get(name)}
+            for name in ("read_kernel", "combine_kernel", "count_kernel")}
 
 
 def _plain(q, keys, values, valid, occ):
-    """The plain versions per object: (mem, m, l) and the counts."""
+    """The plain versions per object: (mem, m, l), log_thres and the
+    counts."""
+    obj = keys.shape[0]
     outs = [attention._read_occ_sweep(keys[o], values[o], valid[o], q,
                                       attention.OCC_CHUNK, occ)
-            for o in range(OBJ)]
-    mem = torch.stack([o[0] for o in outs])
-    m = torch.stack([o[1] for o in outs])
-    l = torch.stack([o[2] for o in outs])
+            for o in range(obj)]
+    mem, m, l = (torch.stack([o[i] for o in outs]) for i in range(3))
     log_thres = math.log(THRES) + torch.log(l) + m
     cnt = torch.stack([attention._count_occ_sweep(
         keys[o], valid[o], q, log_thres[o], attention.OCC_CHUNK, occ)
-        for o in range(OBJ)])
-    return mem, log_thres, cnt
+        for o in range(obj)])
+    return mem, m, l, log_thres, cnt
+
+
+def _bounds(flop, n_bytes):
+    """(bound ms, bound_by, float32 CUDA-core bound ms): the 3xTF32
+    tensor-core bound is the larger of 3 flop at the TF32 peak and the bytes
+    at the memory rate."""
+    t_ops, t_bytes = 3 * flop / TF32_PEAK, n_bytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes",
+            1e3 * max(flop / F32_PEAK, t_bytes))
 
 
 def kernel_phase():
@@ -128,91 +211,144 @@ def kernel_phase():
     # q at 3x scale: a peaked softmax, so a few probabilities pass 1e-3
     q = 3.0 * torch.randn(P, DK, device=dev, generator=g)
     rand_valid = torch.rand(OBJ, N, device=dev, generator=g) < 0.9
-    slot = torch.arange(N, device=dev)[None].expand(OBJ, N)
     none_valid = torch.zeros(OBJ, N, dtype=torch.bool, device=dev)
-    cases = {
-        "full": (rand_valid, N),
-        "occ20000": (rand_valid, 20000),
-        "all_invalid": (none_valid, N),
-        "all_invalid_occ0": (none_valid, 0),
+    # P = 37 on a ragged bank of 20,000 slots (3 chunks, the last padded)
+    n_r = 20000
+    ragged = (q[:37].contiguous(), keys[:, :n_r].contiguous(),
+              values[:, :n_r].contiguous(), rand_valid[:, :n_r].contiguous())
+    full = (q, keys, values)
+    cases = {   # name: (q, keys, values, valid, occ, splits or None)
+        "full": (*full, rand_valid, N, None),
+        "occ20000": (*full, rand_valid, 20000, None),
+        "all_invalid": (*full, none_valid, N, None),
+        "all_invalid_occ0": (*full, none_valid, 0, None),
+        "p37_n20000": (*ragged, n_r, None),
+        # 16,384 visited slots in 5 segments of 3,296: the bound ends 96
+        # slots into the last one
+        "occ9000_s5": (*full, rand_valid, 9000, 5),
     }
-    rows = {}
-    for name, (valid, occ) in cases.items():
+    errs, timing = {}, {}
+    for name, (qc, kc, vc, valid, occ, splits) in cases.items():
         valid = valid.contiguous()
+        n = kc.shape[1]
         occ_t = torch.tensor([occ], dtype=torch.int32, device=dev)
-        mem_k, _, _ = bank_read_cuda.bank_read(q, keys, values, valid, occ_t,
-                                               attention.OCC_CHUNK)
-        mem_p, log_thres, cnt_p = _plain(q, keys, values, valid, occ)
-        cnt_k = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres,
+        if splits is None:
+            splits = bank_read_cuda.default_splits(
+                OBJ, qc.shape[0],
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+        parts = bank_read_cuda.bank_read_partials(
+            qc, kc, vc, valid, occ_t, attention.OCC_CHUNK, splits)
+        mem_k, m_k, l_k, lt_k = bank_read_cuda.bank_read_combine(*parts,
+                                                                 THRES)
+        mem_p, m_p, l_p, log_thres, cnt_p = _plain(qc, kc, vc, valid, occ)
+        # the count kernel on the plain version's thresholds, so that its
+        # comparison does not depend on the read's
+        cnt_k = bank_read_cuda.bank_count(qc, kc, valid, occ_t, log_thres,
                                           attention.OCC_CHUNK)
         torch.cuda.synchronize()
+        combined = attention.combine_partials(*parts, THRES)
+        comb_err = max((a - b).abs().max().item()
+                       for a, b in zip((mem_k, m_k, l_k, lt_k), combined))
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                  for a, b in zip((mem_k, m_k, l_k, lt_k), combined)),
+              f"{name}: combine kernel within rtol 1e-5 atol 1e-6 of "
+              f"combine_partials on the kernel's partials")
         check(torch.isfinite(mem_k).all().item(), f"{name}: mem finite")
         mem_err = (mem_k - mem_p).abs().max().item()
-        mem_ok = torch.allclose(mem_k, mem_p, **MEM_TOL)
         cnt_diff = (cnt_k - cnt_p).abs()
         n_mismatch = int((cnt_diff > 0).sum())
         cnt_err = cnt_diff.max().item()
-        n_visit = attention.visited_slots(N, attention.OCC_CHUNK, occ)
-        beyond = cnt_k[:, min(n_visit, N):].abs().sum().item()
-        log("kernels", f"{name}: mem max|err| {mem_err:.3e}, cnt slots "
-            f"differing {n_mismatch} (max |diff| {cnt_err}), cnt total "
-            f"{cnt_k.sum().item():.0f}, cnt beyond bound {beyond}")
-        check(mem_ok, f"{name}: mem within rtol 2e-4 atol 2e-5")
+        n_visit = attention.visited_slots(n, attention.OCC_CHUNK, occ)
+        beyond = cnt_k[:, min(n_visit, n):].abs().sum().item()
+        log("kernels", f"{name} (P {qc.shape[0]}, N {n}, occ {occ}, S "
+            f"{splits}): mem max|err| {mem_err:.3e}, m max|err| "
+            f"{(m_k - m_p).abs().max().item():.3e}, l max rel err "
+            f"{((l_k - l_p) / l_p).abs().max().item():.3e}, combine vs plain "
+            f"combine {comb_err:.3e}, cnt slots differing {n_mismatch} (max "
+            f"|diff| {cnt_err}), cnt total {cnt_k.sum().item():.0f}, cnt "
+            f"beyond bound {beyond}")
+        check(torch.allclose(mem_k, mem_p, **MEM_TOL),
+              f"{name}: mem within rtol 2e-4 atol 2e-5")
+        check(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-5),
+              f"{name}: m within rtol 1e-5 atol 1e-5")
+        check(torch.allclose(l_k, l_p, rtol=1e-4, atol=0),
+              f"{name}: l within rtol 1e-4")
         check(cnt_err <= 1.0, f"{name}: cnt |diff| <= 1 per slot")
         check(beyond == 0, f"{name}: no counts beyond the bound")
-        rows[name] = (mem_err, cnt_err)
+        errs[name] = (mem_err, comb_err, cnt_err)
         if name.startswith("all_invalid"):
             # every score is -1e30: a uniform mean over the visited slots
-            want = values[:, :n_visit].mean(1, keepdim=True).expand_as(mem_k)
+            want = vc[:, :n_visit].mean(1, keepdim=True).expand_as(mem_k)
             check(cnt_k.sum().item() == 0, f"{name}: counts are 0")
             check(torch.allclose(mem_k, want, **MEM_TOL),
                   f"{name}: mem is the mean of the first {n_visit} values")
         if name == "occ20000":
             # the case tells a bounded loop from one over the whole bank
-            unbounded = _plain(q, keys, values, valid, N)[0]
+            unbounded = _plain(qc, kc, vc, valid, n)[0]
             check(not torch.allclose(mem_k, unbounded, **MEM_TOL),
                   "occ20000: the unbounded read differs from the bounded")
         if name != "full":
             continue
         check(cnt_k.sum().item() > 0, "full bank has nonzero counts")
+        chunk = attention.OCC_CHUNK
         read_ms = time_ms(lambda: bank_read_cuda.bank_read(
-            q, keys, values, valid, occ_t, attention.OCC_CHUNK))
+            q, keys, values, valid, occ_t, chunk, THRES))
+        read_kernel_ms = time_ms(lambda: bank_read_cuda.bank_read_partials(
+            q, keys, values, valid, occ_t, chunk, splits))
+        combine_ms = time_ms(lambda: bank_read_cuda.bank_read_combine(
+            *parts, THRES))
         count_ms = time_ms(lambda: bank_read_cuda.bank_count(
-            q, keys, valid, occ_t, log_thres, attention.OCC_CHUNK))
+            q, keys, valid, occ_t, log_thres, chunk))
         plain_read_ms = time_ms(lambda: [attention._read_occ_sweep(
-            keys[o], values[o], valid[o], q, attention.OCC_CHUNK, occ)
+            keys[o], values[o], valid[o], q, chunk, occ)
             for o in range(OBJ)], reps=5)
+        plain_combine_ms = time_ms(lambda: attention.combine_partials(
+            *parts, THRES))
         plain_count_ms = time_ms(lambda: [attention._count_occ_sweep(
-            keys[o], valid[o], q, log_thres[o], attention.OCC_CHUNK, occ)
+            keys[o], valid[o], q, log_thres[o], chunk, occ)
             for o in range(OBJ)], reps=5)
         qb = q[None, None].expand(OBJ, 1, P, DK)
         mask = valid[:, None, None, :]
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qb, keys[:, None], values[:, None], attn_mask=mask), reps=5)
+        # a reference, not the same function: cuBLAS float32 q @ keys^T,
+        # the scores the count compares, written out in full
+        scores_ms = time_ms(lambda: torch.matmul(q, keys.transpose(1, 2)),
+                            reps=5)
         n_vis = n_visit
         read_flop = OBJ * 2 * P * n_vis * (DK + DV)
         read_bytes = 4 * (P * DK + OBJ * n_vis * (DK + DV)
-                          + OBJ * P * (DV + 2)) + OBJ * n_vis
+                          + OBJ * P * (DV + 3)) + OBJ * n_vis
+        comb_flop = OBJ * splits * P * 2 * DV
+        comb_bytes = 4 * (OBJ * splits * P * (DV + 2) + OBJ * P * (DV + 3))
         count_flop = OBJ * 2 * P * n_vis * DK
         count_bytes = 4 * (P * DK + OBJ * n_vis * DK + OBJ * P + OBJ * N) \
             + OBJ * n_vis
+        # the combine is float32 work on the CUDA cores
+        comb_t = (comb_flop / F32_PEAK, comb_bytes / HBM_RATE)
+        comb_bound = (1e3 * max(comb_t),
+                      "operations" if comb_t[0] > comb_t[1] else "bytes",
+                      1e3 * max(comb_t))
         timing = dict(
-            read=(read_ms, plain_read_ms, sdpa_ms,
-                  1e3 * max(read_flop / F32_PEAK, read_bytes / HBM_RATE),
-                  "operations" if read_flop / F32_PEAK > read_bytes / HBM_RATE
-                  else "bytes"),
-            count=(count_ms, plain_count_ms, None,
-                   1e3 * max(count_flop / F32_PEAK, count_bytes / HBM_RATE),
-                   "operations" if count_flop / F32_PEAK >
-                   count_bytes / HBM_RATE else "bytes"))
-        log("kernels", f"full: read {read_ms:.3f} ms (plain "
-            f"{plain_read_ms:.3f}, sdpa {sdpa_ms:.3f}, bound "
-            f"{timing['read'][3]:.3f}); count "
-            f"{count_ms:.3f} ms (plain {plain_count_ms:.3f}, bound "
-            f"{timing['count'][3]:.3f})")
-    del keys, values
+            bank_read=(read_ms, plain_read_ms, sdpa_ms,
+                       *_bounds(read_flop, read_bytes),
+                       {"read_kernel_ms": read_kernel_ms, "splits": splits}),
+            bank_read_combine=(combine_ms, plain_combine_ms, None,
+                               *comb_bound, {"splits": splits}),
+            bank_count=(count_ms, plain_count_ms, None,
+                        *_bounds(count_flop, count_bytes),
+                        {"reference_cublas_f32_scores_ms": scores_ms}))
+        log("kernels", f"full: read + combine {read_ms:.3f} ms (read kernel "
+            f"{read_kernel_ms:.3f}, combine {combine_ms:.3f}, S {splits}; "
+            f"plain {plain_read_ms:.3f}, sdpa {sdpa_ms:.3f}, bound "
+            f"{timing['bank_read'][3]:.3f}, f32 bound "
+            f"{timing['bank_read'][5]:.3f}); count {count_ms:.3f} ms (plain "
+            f"{plain_count_ms:.3f}, bound {timing['bank_count'][3]:.3f}, f32 "
+            f"bound {timing['bank_count'][5]:.3f}, cuBLAS f32 scores "
+            f"{scores_ms:.3f}); combine plain {plain_combine_ms:.3f}")
+    del keys, values, ragged, full, cases, kc, vc, parts
     torch.cuda.empty_cache()
-    return rows, timing
+    return errs, timing
 
 
 def synthetic_clip(n, h, w, seed):
@@ -255,8 +391,9 @@ def main_path_phase(model):
         check(arr.shape == FRAME_HW and arr.dtype == np.uint8,
               f"label shape {arr.shape} {arr.dtype}")
         check(set(np.unique(arr)) <= {0, 1}, "labels in {0, 1}")
-    check(launches["bank_read"] > 0 and launches["bank_count"] > 0,
-          f"main path launched both kernels: {launches}")
+    check(all(v == len(frames) - 1 for v in launches.values()),
+          f"main path launched read, combine and count once per frame: "
+          f"{launches}")
     warm = step_ms[1:]
     water = float(np.mean([eng.fetch_label(lab).mean() for lab in labels]))
     h, w = short_side_size(*FRAME_HW, DOWNSAMPLE)
@@ -319,20 +456,25 @@ def full_bank_phase(eng, state):
         f"ms; evicted {evicted}")
 
 
-def kernel_rows(errs, timing, launches):
+def kernel_rows(errs, timing, launches, build):
     """One row per kernel for the result's JSON line."""
     rows = []
-    for name, key, line, idx in (("bank_read", "read", 29, 0),
-                                 ("bank_count", "count", 67, 1)):
-        ms, plain_ms, lib_ms, bound_ms, bound_by = timing[key]
+    for name, kernel, idx in (("bank_read", "read_kernel", 0),
+                              ("bank_read_combine", "combine_kernel", 1),
+                              ("bank_count", "count_kernel", 2)):
+        ms, plain_ms, lib_ms, bound_ms, bound_by, f32_ms, extra = \
+            timing[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "vfloodnet_tpu_torch/csrc/bank_read.cu",
-            "replaces": f"vfloodnet_tpu/ops/attention_pallas.py:{line}",
+            "replaces": "vfloodnet_tpu/ops/attention_pallas.py:"
+                        f"{67 if name == 'bank_count' else 29}",
             "launches": launches[name],
             "max_abs_err": max(e[idx] for e in errs.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "bound_f32_cuda_cores_ms": f32_ms, **(extra or {}),
+            **build[kernel]})
     return rows
 
 
@@ -341,13 +483,13 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     device_phase()
-    build_phase()
+    build = build_phase()
     errs, timing = kernel_phase()
     model = load_afb_urr(default_checkpoint("video"), device=DEV)
     launches, state, eng = main_path_phase(model)
     small_agreement_phase(model)
     full_bank_phase(eng, state)
-    kernels = kernel_rows(errs, timing, launches)
+    kernels = kernel_rows(errs, timing, launches, build)
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

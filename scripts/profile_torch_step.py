@@ -8,9 +8,10 @@ for a bank at the main path's occupancy and for a full bank (98,304 slots
 per object):
 
 - per-stage milliseconds of a step, each stage synchronised on both sides
-  (host clock; the syncs add to these steps' time): query encode, bank read (read + count kernels), decode,
-  usage, memorize, bank update, the device largest-CC cleanup, and the rest
-  (normalise, resizes, packing);
+  (host clock; the syncs add to these steps' time): query encode, bank
+  read (read, combine and count kernels), decode, usage, memorize, bank
+  update, the device largest-CC cleanup, and the rest (normalise, resizes,
+  packing);
 - the unsynchronised step time: the wall time of a run of steps with no
   synchronisation but the engine's own, timed with CUDA events at its two
   ends;
@@ -28,6 +29,7 @@ Prints one JSON line per bank state.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,9 +64,11 @@ def _timed(fn, name, acc):
 
 def _group(name):
     n = name.lower()
-    if "read_kernel" in n:
+    # csrc/bank_read.cu: the read and its combine, then the count (no letter
+    # before the name, so not thread_kernel; before "gemm"'s sm90)
+    if re.search(r"(?<![a-z])(read|combine)_kernel", n):
         return "bank_read_kernel"
-    if "count_kernel" in n:
+    if re.search(r"(?<![a-z])count_kernel", n):
         return "bank_count_kernel"
     if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "winograd",
                             "fft", "nchw", "nhwc")):

@@ -15,7 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from vfloodnet_tpu.ops import attention as jatt
 from vfloodnet_tpu.ops.attention_pallas import pallas_bank_read
 from vfloodnet_tpu_torch.ops import attention as tatt
-from vfloodnet_tpu_torch.ops import bank_attention_read
+from vfloodnet_tpu_torch.ops import bank_attention_read, bank_read_cuda
 
 torch.set_num_threads(2)
 MEM_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -129,3 +129,59 @@ def test_visited_slots_follows_the_occupancy_rounding():
     assert tatt.visited_slots(98304, 8192, 0) == 8192
     assert tatt.visited_slots(1000, 256, 1000) == 1024
     assert tatt.visited_slots(500, 8192, 7) == 500
+
+
+# The read kernel's bank split: segments of the plain sweep merged by
+# combine_partials. (n, p, chunk, occ, valid_frac): a random bank; an
+# all-invalid bank (the mean of the visited slots, padding included); 40
+# visited slots in 32-slot segments, so that with 3 or 4 splits whole
+# segments lie past the bound; occupancy 0 (one chunk).
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("n,p,chunk,occ,valid_frac", [
+    (1000, 37, 256, 1000, 0.7),
+    (1000, 37, 256, 1000, 0.0),
+    (1000, 20, 40, 30, 0.7),
+    (640, 13, 128, 0, 0.7),
+], ids=["random", "all_invalid", "segments_past_bound", "occ0"])
+def test_combined_segments_match_single_sweep_and_jax(splits, n, p, chunk,
+                                                      occ, valid_frac):
+    """mem, m and l of the merged segments against the single-sweep plain
+    read, and mem (with the counts that the merged m and l give) against
+    the JAX package's _xla_read_occ, which returns no m or l."""
+    keys, values, valid, q = _inputs(6, n, p, valid_frac=valid_frac)
+    tk, tv, tok, tq = _torch(keys, values, valid, q)
+    m_s, l_s, acc_s = tatt._read_occ_segments(tk, tv, tok, tq, chunk, occ,
+                                              splits)
+    n_visit = tatt.visited_slots(n, chunk, occ)
+    seg = tatt.segment_length(n_visit, splits, 32)
+    for s in range(splits):
+        if s * seg >= n_visit:   # a segment wholly past the bound
+            assert (m_s[s] == -float("inf")).all() and (l_s[s] == 0).all()
+            assert (acc_s[s] == 0).all()
+    mem, m, l, log_thres = tatt.combine_partials(m_s, l_s, acc_s, 1e-3)
+    assert torch.isfinite(mem).all() and torch.isfinite(log_thres).all()
+    want_mem, want_m, want_l = tatt._read_occ_sweep(tk, tv, tok, tq, chunk,
+                                                    occ)
+    torch.testing.assert_close(mem, want_mem, **MEM_TOL)
+    torch.testing.assert_close(m, want_m, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(l, want_l, rtol=1e-5, atol=0)
+    cnt = tatt._count_occ_sweep(tk, tok, tq, log_thres, chunk, occ)
+    want = jatt._xla_read_occ(*map(jnp.asarray, (keys, values, valid, q)),
+                              1e-3, chunk, jnp.int32(occ))
+    _check((mem, cnt), want)
+    if valid_frac == 0.0:   # every visited slot weighs the same
+        padded = torch.cat([tv, tv.new_zeros(n_visit - n, tv.shape[1])]) \
+            if n_visit > n else tv[:n_visit]
+        torch.testing.assert_close(mem, padded.mean(0).expand_as(mem),
+                                   **MEM_TOL)
+
+
+def test_segment_length_and_default_splits():
+    # 16,384 visited slots in 5 segments: 3,277 rounded up to 3,296
+    assert tatt.segment_length(16384, 5, 32) == 3296
+    assert tatt.segment_length(40, 4, 32) == 32
+    assert tatt.segment_length(98304, 1, 32) == 98304
+    # main path: 2 objects x 26 query tiles on 132 SMs -> 260 blocks
+    assert bank_read_cuda.default_splits(2, 1620, 132) == 5
+    assert bank_read_cuda.default_splits(2, 37, 132) == 8
+    assert bank_read_cuda.default_splits(66, 64, 132) == 2

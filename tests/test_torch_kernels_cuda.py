@@ -1,10 +1,13 @@
-"""The CUDA bank read and count kernels against their plain PyTorch
+"""The CUDA bank read, combine and count kernels against their plain PyTorch
 versions, on the card. Marked ``cuda``; each test skips where there is no
 GPU. Run on a GPU machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (``tests/conftest.py`` sets up JAX, which this file does not need).
 
-Tolerances: mem rtol 2e-4, atol 2e-5; counts |diff| <= 1 per slot.
+Tolerances: mem rtol 2e-4, atol 2e-5; counts |diff| <= 1 per slot; m rtol
+1e-5 / atol 1e-5 and l rtol 1e-4 against the plain read; the combine kernel
+against ``combine_partials`` on the same partials: rtol 1e-5, atol 1e-6
+(the same arithmetic, with exp and log of another library).
 """
 
 import math
@@ -36,6 +39,11 @@ def _bank(dev, obj, n, p, seed, prefix=None):
     return keys, values, valid.contiguous(), q
 
 
+def _occ(occ, dev):
+    return None if occ is None else torch.tensor([occ], dtype=torch.int32,
+                                                 device=dev)
+
+
 # Valid slots past the bound stay valid (prefix None), so a kernel that
 # ignored the bound would disagree with the plain bounded read.
 @pytest.mark.parametrize("n,p,chunk,occ,prefix", [
@@ -48,10 +56,10 @@ def _bank(dev, obj, n, p, seed, prefix=None):
 def test_kernels_match_plain(dev, n, p, chunk, occ, prefix):
     keys, values, valid, q = _bank(dev, 2, n, p, seed=n + p,
                                    prefix=prefix)
-    occ_t = None if occ is None else torch.tensor([occ], dtype=torch.int32,
-                                                  device=dev)
-    mem, m, l = bank_read_cuda.bank_read(q, keys, values, valid, occ_t, chunk)
-    log_thres = math.log(1e-3) + torch.log(l) + m
+    occ_t = _occ(occ, dev)
+    mem, m, l, log_thres = bank_read_cuda.bank_read(q, keys, values, valid,
+                                                    occ_t, chunk)
+    torch.testing.assert_close(log_thres, math.log(1e-3) + torch.log(l) + m)
     cnt = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres, chunk)
     for o in range(2):
         if occ is None:
@@ -66,6 +74,51 @@ def test_kernels_match_plain(dev, n, p, chunk, occ, prefix):
                 keys[o], valid[o], q, log_thres[o], chunk, occ)
         torch.testing.assert_close(mem[o], want_mem, rtol=2e-4, atol=2e-5)
         assert (cnt[o] - want_cnt).abs().max().item() <= 1.0
+
+
+# Segment boundaries: (n, p, chunk, occ, splits). The visited slots are cut
+# into ceil(ceil(n_visit / S) / 32) * 32-slot segments.
+@pytest.mark.parametrize("n,p,chunk,occ,splits", [
+    (640, 37, 128, 0, 8),        # 128 visited: 4 segments of 32, 4 empty
+    (1000, 37, 256, 300, 3),     # 512 visited: 192 + 192 + 128
+    (1000, 100, 256, 1000, 5),   # 1024 visited, 24 of them padding past N
+    (20000, 37, 8192, 20000, 4),  # ragged N: the last segment ends in padding
+    (20000, 64, 8192, 9000, 5),  # bound ends inside segment 4 of 5
+    (700, 20, 8192, 700, 1),     # N below the chunk: 700 slots, one segment
+])
+def test_split_partials_and_combine_match_plain(dev, n, p, chunk, occ,
+                                                splits):
+    keys, values, valid, q = _bank(dev, 2, n, p, seed=7 * n + p)
+    occ_t = _occ(occ, dev)
+    m_s, l_s, acc_s = bank_read_cuda.bank_read_partials(
+        q, keys, values, valid, occ_t, chunk, splits)
+    n_visit = attention.visited_slots(n, chunk, occ)
+    seg = attention.segment_length(n_visit, splits, bank_read_cuda.READ_TILE)
+    for o in range(2):
+        wm, wl, wacc = attention._read_occ_segments(
+            keys[o], values[o], valid[o], q, chunk, occ, splits)
+        for s in range(splits):
+            if s * seg >= n_visit:   # an empty segment weighs nothing
+                assert (m_s[o, s] == -math.inf).all()
+                assert (l_s[o, s] == 0).all() and (acc_s[o, s] == 0).all()
+                continue
+            torch.testing.assert_close(m_s[o, s], wm[s], rtol=1e-5,
+                                       atol=1e-5)
+            torch.testing.assert_close(l_s[o, s], wl[s], rtol=1e-4, atol=0)
+            torch.testing.assert_close(acc_s[o, s] / l_s[o, s, :, None],
+                                       wacc[s] / wl[s, :, None],
+                                       rtol=2e-4, atol=2e-5)
+    got = bank_read_cuda.bank_read_combine(m_s, l_s, acc_s, 1e-3)
+    want = attention.combine_partials(m_s, l_s, acc_s, 1e-3)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    for o in range(2):
+        mem, m, l = attention._read_occ_sweep(keys[o], values[o], valid[o],
+                                              q, chunk, occ)
+        torch.testing.assert_close(got[0][o], mem, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got[1][o], m, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[2][o], l, rtol=1e-4, atol=0)
 
 
 def test_all_invalid_bank(dev):
@@ -83,7 +136,9 @@ def test_dispatcher_counts_launches_and_refuses_bad_input(dev):
     bank_read_cuda.reset_launches()
     attention.bank_attention_read(keys, values, valid, q,
                                   occ_bound=torch.tensor(300, device=dev))
-    assert bank_read_cuda.launches == {"bank_read": 1, "bank_count": 1}
+    assert bank_read_cuda.launches == {"bank_read": 1,
+                                       "bank_read_combine": 1,
+                                       "bank_count": 1}
     with pytest.raises(ValueError):
         attention.bank_attention_read(keys, values, valid, q.double())
     with pytest.raises(ValueError):

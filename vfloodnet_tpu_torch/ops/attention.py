@@ -10,11 +10,15 @@ drives the bank's LFU eviction,
 
     cnt[n] = #{p : softmax_n(q_p . k / sqrt(dk)) > thres}.
 
-On CUDA tensors the read and the count are the hand-written kernels of
-``csrc/bank_read.cu`` (:mod:`.bank_read_cuda`). On CPU tensors the plain
-versions below run; they repeat the JAX package's three variants (dense,
-chunked and occupancy-bounded), and the tests hold each against its JAX
-counterpart. A CUDA tensor never takes a plain version.
+On CUDA tensors the read (over S bank segments, then a combine) and the
+count are the hand-written kernels of ``csrc/bank_read.cu``
+(:mod:`.bank_read_cuda`). On CPU tensors the plain versions below run; they
+repeat the JAX package's three variants (dense, chunked and
+occupancy-bounded), and the tests hold each against its JAX counterpart.
+The plain versions of the kernels are ``_read_occ_sweep`` (read),
+``_read_occ_segments`` (the read's per-segment partials),
+``combine_partials`` (combine) and ``_count_occ_sweep`` (count). A CUDA
+tensor never takes a plain version.
 """
 
 from __future__ import annotations
@@ -134,6 +138,57 @@ def _read_occ(keys, values, valid, q, thres, chunk, occ_bound):
     return mem, _count_occ_sweep(keys, valid, q, log_thres, chunk, occ_bound)
 
 
+def segment_length(n_visit: int, splits: int, tile: int) -> int:
+    """Slots in each of the read kernel's ``splits`` segments of the
+    ``n_visit`` visited slots: ``ceil(n_visit / splits)`` rounded up to
+    ``tile``. Segment s covers [s len, min((s + 1) len, n_visit))."""
+    per_split = -(-n_visit // splits)
+    return -(-per_split // tile) * tile
+
+
+def _read_occ_segments(keys, values, valid, q, chunk, occ_bound, splits,
+                       tile=bank_read_cuda.READ_TILE):
+    """Plain version of the read kernel's partials: the visited slots of
+    the occupancy-bounded read cut into ``splits`` segments, each swept on
+    its own. -> (m_s [S, P], l_s [S, P], acc_s [S, P, dv]), acc_s not
+    normalised; a segment with no visited slot has m = -inf, l = 0,
+    acc = 0. :func:`combine_partials` merges them."""
+    n, dk = keys.shape
+    n_visit = visited_slots(n, chunk, occ_bound)
+    seg = segment_length(n_visit, splits, tile)
+    rows = max(n, n_visit)
+    keys_p, values_p = _pad_rows(keys, rows), _pad_rows(values, rows)
+    valid_p = _pad_rows(valid, rows)
+    scale = 1.0 / math.sqrt(dk)
+    p_n = q.shape[0]
+    m_s = q.new_full((splits, p_n), -math.inf)
+    l_s = q.new_zeros((splits, p_n))
+    acc_s = q.new_zeros((splits, p_n, values.shape[1]))
+    c = min(chunk, n)
+    for s in range(splits):
+        stop = min((s + 1) * seg, n_visit)
+        for start in range(s * seg, stop, c):
+            end = min(start + c, stop)
+            m_s[s], l_s[s], acc_s[s] = _online_step(
+                m_s[s], l_s[s], acc_s[s], q, keys_p[start:end],
+                values_p[start:end], valid_p[start:end], scale)
+    return m_s, l_s, acc_s
+
+
+def combine_partials(m_s, l_s, acc_s, thres):
+    """Plain version of the combine kernel: merges segments m_s, l_s
+    [..., S, P] and acc_s [..., S, P, dv] into (mem [..., P, dv], m, l,
+    log_thres [..., P]) with M = max_s m_s, w_s = exp(m_s - M) (0 where
+    m_s = -inf), l = sum_s w_s l_s clamped at 1e-30, mem = sum_s w_s acc_s
+    / l and log_thres = log(thres) + log(l) + M."""
+    m = m_s.max(dim=-2).values
+    w = torch.where(m_s == -math.inf, torch.zeros_like(m_s),
+                    torch.exp(m_s - m.unsqueeze(-2)))
+    l = (w * l_s).sum(dim=-2).clamp_min(1e-30)
+    mem = (w.unsqueeze(-1) * acc_s).sum(dim=-3) / l.unsqueeze(-1)
+    return mem, m, l, math.log(thres) + torch.log(l) + m
+
+
 def read_plain(keys, values, valid, q, thres=1e-3, chunk=4096,
                occ_bound: Optional[int] = None):
     """Single-object plain read with the JAX package's variant selection:
@@ -179,9 +234,8 @@ def _kernel_read(keys, values, valid, q, thres, occ_bound):
                                  device=keys.device)
     if occ_bound is not None:
         occ_bound = occ_bound.to(torch.int32).reshape(1)
-    mem, m, l = bank_read_cuda.bank_read(q, keys, values, valid, occ_bound,
-                                         OCC_CHUNK)
-    log_thres = math.log(thres) + torch.log(l) + m
+    mem, _, _, log_thres = bank_read_cuda.bank_read(
+        q, keys, values, valid, occ_bound, OCC_CHUNK, thres)
     cnt = bank_read_cuda.bank_count(q, keys, valid, occ_bound, log_thres,
                                     OCC_CHUNK)
     return mem, cnt

@@ -1,22 +1,25 @@
-"""Build, load and launch the bank read and count kernels
+"""Build, load and launch the bank read, combine and count kernels
 (``csrc/bank_read.cu``).
 
-The source is compiled with ``nvcc`` into a shared library with a plain C
+The sources are compiled with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``, at the first launch in a process (never
 at import: the CPU tests import this module where there is no ``nvcc``).
 The library goes to ``vfloodnet_tpu_torch/_build/``, named by the hash of
-the source, so an edited source is rebuilt and an unchanged one is reused.
-A build writes to a private temporary name and renames it into place, so
-there is no lock file to go stale.
+every source and header under ``csrc/`` and of the flags, so an edited file
+is rebuilt and an unchanged tree is reused. A build writes to a private
+temporary name and renames it into place, so there is no lock file to go
+stale.
 
-Each wrapper checks its tensors, allocates the outputs with ``torch.empty``,
-launches on PyTorch's current stream, raises if the launch reports an
-error, and adds one to its entry in :data:`launches`.
+Each wrapper checks its tensors, allocates its outputs (and the read's
+per-segment partials) with ``torch.empty``, launches on PyTorch's current
+stream, raises if the launch reports an error, and adds one to its entry
+in :data:`launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import math
 import os
@@ -28,18 +31,24 @@ from typing import Optional
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "bank_read.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "bank_read.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DK, DV = 128, 512
+# Bank slots per tile of the read kernel (a segment is a whole number of
+# them) and query rows per tile; checked against the library at load.
+READ_TILE, QUERY_TILE = 32, 64
+MAX_SPLITS = 8
 
-# Launch counts of the two kernels in this process (reset with
+# Launch counts of the kernels in this process (reset with
 # reset_launches()); a run reads them to show which kernels it went through.
-launches = {"bank_read": 0, "bank_count": 0}
+launches = {"bank_read": 0, "bank_read_combine": 0, "bank_count": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+build_log: Optional[str] = None   # ptxas's report of the last compile
 
 
 def reset_launches() -> None:
@@ -59,18 +68,32 @@ def _nvcc() -> str:
     return path
 
 
+def _csrc_files() -> list:
+    """Every source and header the build reads, in a fixed order."""
+    return sorted(f for pat in ("*.cu", "*.cuh", "*.h")
+                  for f in glob.glob(os.path.join(CSRC, pat)))
+
+
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _csrc_files():
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"bank_read_{digest.hexdigest()[:16]}.so")
 
 
 def build() -> str:
-    """Compile the kernels unless a library of the current source exists;
-    returns its path. Sets :data:`build_seconds` when it compiled."""
-    global build_seconds
+    """Compile the kernels unless a library of the current sources exists;
+    returns its path. Sets :data:`build_seconds` when it compiled, and
+    :data:`build_log` (registers, shared memory and spills of each kernel,
+    from ``-Xptxas -v``, kept beside the library)."""
+    global build_seconds, build_log
     path = library_path()
+    log_path = path[:-3] + ".log"
     if os.path.exists(path):
+        if build_log is None and os.path.exists(log_path):
+            with open(log_path) as f:
+                build_log = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -80,6 +103,10 @@ def build() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+        f.write(build_log)
+    os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path
@@ -91,19 +118,22 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vft_bank_read.argtypes = [p, p, p, p, p, p, p, p,
-                                      i, i, i, i, f, p]
+                                      i, i, i, i, i, f, p]
         lib.vft_bank_read.restype = i
+        lib.vft_bank_combine.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
+        lib.vft_bank_combine.restype = i
         lib.vft_bank_count.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
         lib.vft_bank_count.restype = i
-        lib.vft_bank_dims.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.vft_bank_dims.argtypes = [ctypes.POINTER(i)] * 4
         lib.vft_bank_dims.restype = i
         lib.vft_error_string.argtypes = [i]
         lib.vft_error_string.restype = ctypes.c_char_p
-        dk, dv = i(), i()
-        lib.vft_bank_dims(ctypes.byref(dk), ctypes.byref(dv))
-        if (dk.value, dv.value) != (DK, DV):
-            raise RuntimeError(f"kernel dims {dk.value}/{dv.value} != "
-                               f"{DK}/{DV}")
+        dims = [i() for _ in range(4)]
+        lib.vft_bank_dims(*map(ctypes.byref, dims))
+        got = tuple(d.value for d in dims)
+        if got != (DK, DV, READ_TILE, QUERY_TILE):
+            raise RuntimeError(f"kernel dims {got} != "
+                               f"{(DK, DV, READ_TILE, QUERY_TILE)}")
         _lib = lib
     return _lib
 
@@ -129,34 +159,92 @@ def _occ_ptr(occ_bound, device) -> Optional[int]:
     return occ_bound.data_ptr()
 
 
-def bank_read(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
-              valid: torch.Tensor, occ_bound: Optional[torch.Tensor],
-              chunk: int):
-    """Read kernel: q [P, dk], keys [obj, N, dk], values [obj, N, dv],
-    valid [obj, N] bool, occ_bound [1] int32 on the device or None ->
-    (mem [obj, P, dv], m [obj, P], l [obj, P]), all float32."""
+def default_splits(obj_n: int, p: int, sms: int) -> int:
+    """Bank segments S of the read: the S in 1..MAX_SPLITS whose grid of
+    obj_n x ceil(p / QUERY_TILE) x S one-block-per-SM blocks leaves the
+    least of the last wave idle (the smallest such S). At the main path's
+    2 objects x 26 query tiles on 132 SMs that is S = 5 (260 blocks, 98.5 %
+    of two waves), whatever the bank's occupancy."""
+    tiles = obj_n * -(-p // QUERY_TILE)
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // sms) * sms)
+
+    return max(range(1, MAX_SPLITS + 1), key=lambda s: (fill(s), -s))
+
+
+def bank_read_partials(q: torch.Tensor, keys: torch.Tensor,
+                       values: torch.Tensor, valid: torch.Tensor,
+                       occ_bound: Optional[torch.Tensor], chunk: int,
+                       splits: int):
+    """Read kernel over ``splits`` segments of the visited bank: q [P, dk],
+    keys [obj, N, dk], values [obj, N, dv], valid [obj, N] bool, occ_bound
+    [1] int32 on the device or None -> (m_s [obj, S, P], l_s [obj, S, P],
+    acc_s [obj, S, P, dv]), float32; acc_s is not normalised."""
     obj_n, n, _ = keys.shape
     p = q.shape[0]
     dev = keys.device
     if dev.type != "cuda" or p == 0 or n == 0:
         raise ValueError("bank_read needs CUDA tensors with P, N > 0")
+    if not 1 <= splits <= 65535:
+        raise ValueError(f"splits must be in 1..65535, got {splits}")
     _check(q, "q", torch.float32, (p, DK), dev)
     _check(keys, "keys", torch.float32, (obj_n, n, DK), dev)
     _check(values, "values", torch.float32, (obj_n, n, DV), dev)
     _check(valid, "valid", torch.bool, (obj_n, n), dev)
     lib = _load()
-    mem = torch.empty((obj_n, p, DV), dtype=torch.float32, device=dev)
-    m = torch.empty((obj_n, p), dtype=torch.float32, device=dev)
-    l = torch.empty((obj_n, p), dtype=torch.float32, device=dev)
+    m_s = torch.empty((obj_n, splits, p), dtype=torch.float32, device=dev)
+    l_s = torch.empty((obj_n, splits, p), dtype=torch.float32, device=dev)
+    acc_s = torch.empty((obj_n, splits, p, DV), dtype=torch.float32,
+                        device=dev)
     with torch.cuda.device(dev):
         err = lib.vft_bank_read(
             q.data_ptr(), keys.data_ptr(), values.data_ptr(),
-            valid.data_ptr(), _occ_ptr(occ_bound, dev), mem.data_ptr(),
-            m.data_ptr(), l.data_ptr(), p, n, obj_n, chunk,
+            valid.data_ptr(), _occ_ptr(occ_bound, dev), m_s.data_ptr(),
+            l_s.data_ptr(), acc_s.data_ptr(), p, n, obj_n, chunk, splits,
             1.0 / math.sqrt(DK), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "bank_read")
     launches["bank_read"] += 1
-    return mem, m, l
+    return m_s, l_s, acc_s
+
+
+def bank_read_combine(m_s: torch.Tensor, l_s: torch.Tensor,
+                      acc_s: torch.Tensor, thres: float):
+    """Combine kernel: the read's segments m_s, l_s [obj, S, P], acc_s
+    [obj, S, P, dv] -> (mem [obj, P, dv], m, l, log_thres [obj, P]), with
+    l clamped at 1e-30 and log_thres = log(thres) + log(l) + m."""
+    obj_n, splits, p = m_s.shape
+    dev = m_s.device
+    if dev.type != "cuda" or p == 0:
+        raise ValueError("bank_read_combine needs CUDA tensors with P > 0")
+    _check(m_s, "m_s", torch.float32, (obj_n, splits, p), dev)
+    _check(l_s, "l_s", torch.float32, (obj_n, splits, p), dev)
+    _check(acc_s, "acc_s", torch.float32, (obj_n, splits, p, DV), dev)
+    lib = _load()
+    mem = torch.empty((obj_n, p, DV), dtype=torch.float32, device=dev)
+    m, l, log_thres = (torch.empty((obj_n, p), dtype=torch.float32,
+                                   device=dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        err = lib.vft_bank_combine(
+            m_s.data_ptr(), l_s.data_ptr(), acc_s.data_ptr(), mem.data_ptr(),
+            m.data_ptr(), l.data_ptr(), log_thres.data_ptr(), p, obj_n,
+            splits, math.log(thres), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "bank_read_combine")
+    launches["bank_read_combine"] += 1
+    return mem, m, l, log_thres
+
+
+def bank_read(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+              valid: torch.Tensor, occ_bound: Optional[torch.Tensor],
+              chunk: int, thres: float = 1e-3):
+    """Read over :func:`default_splits` segments for this card, then
+    combine: (mem [obj, P, dv], m [obj, P], l [obj, P], log_thres
+    [obj, P]), all float32."""
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    parts = bank_read_partials(q, keys, values, valid, occ_bound, chunk,
+                               default_splits(keys.shape[0], q.shape[0], sms))
+    return bank_read_combine(*parts, thres)
 
 
 def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
