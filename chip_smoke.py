@@ -8,10 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one line with its elapsed seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build: ``nvcc`` builds the bank read, combine and count kernels into
+2. build: two ``nvcc`` runs, started together, build the float32 bank
+   read, combine and count kernels and the bf16 read and count kernels into
    ``vfloodnet_tpu_torch/_build/``; each kernel's registers and spills
    (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump -sass``:
-   the read and the count must hold ``HMMA`` in TF32).
+   the float32 read and count must hold ``HMMA`` in TF32, the bf16 ones
+   ``HMMA.16816.F32.BF16``).
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (P = 1620 query pixels, dk = 128, dv = 512, N = 98,304 slots,
    2 objects) for a full bank, a bound of 20,000 with valid slots past it
@@ -30,6 +32,23 @@ Phases, each printing one line with its elapsed seconds:
    each launch once per frame; then the same engine on a small clip
    against itself on the CPU, where the plain versions run.
 5. full bank: the bank filled to capacity, two steps with LFU eviction.
+6. bf16 kernels: the bf16 read (with the float32 combine) and count
+   against their plain versions on a bf16 bank at the same shapes (full,
+   a bound of 20,000 with valid slots past it, a bound inside the last of
+   5 segments, all invalid at occupancy 0), mem within rtol 1e-2 / atol
+   2e-3 and counts within 1; their times, the plain versions', one bf16
+   ``scaled_dot_product_attention`` call with the validity mask (the
+   backend it took is named) and the cuBLAS bf16 ``q @ keys^T`` of the
+   count's scores.
+7. bf16 main path: an engine of ``AFBURR(dtype=torch.bfloat16)`` built
+   from the weights of phase 4's model (which must stay float32) and a
+   bf16 bank segments the eight frames; the bf16 read and count and the
+   combine must each launch once per frame and the float32 read and count
+   never; then the bf16 engine on the small clip against itself on the CPU
+   (its agreement must be at least the agreement of the CPU's bf16 and
+   float32 labels on that clip, less 0.01: bf16 labels there move with
+   the convolutions' summation order), and a full bf16 bank with
+   eviction.
 
 Then one JSON line of the kernels' numbers and, last, ``{"ok": true,
 "device": {...}}``. In the JSON line, ``bank_read`` times the read with its
@@ -55,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from vfloodnet_tpu_torch.memory import FeatureBank
+from vfloodnet_tpu_torch.models import AFBURR
 from vfloodnet_tpu_torch.ops import attention, bank_read_cuda, short_side_size
 from vfloodnet_tpu_torch.pipelines.loaders import (default_checkpoint,
                                                    load_afb_urr)
@@ -64,8 +84,10 @@ T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
 THRES = 1e-3
 MEM_TOL = dict(rtol=2e-4, atol=2e-5)
+MEM_TOL_BF16 = dict(rtol=1e-2, atol=2e-3)   # one bf16 ulp is 3.9e-3
 F32_PEAK = 67e12     # H100 SXM float32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
+BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12   # H100 SXM bytes/s
 SEED = 0
 DEV = torch.device("cuda")
@@ -112,6 +134,14 @@ def device_phase():
         f"{torch.backends.cudnn.allow_tf32}")
 
 
+KERNELS = ("read_bf16_kernel", "count_bf16_kernel", "read_kernel",
+           "combine_kernel", "count_kernel")
+
+
+def _kernel_name(symbol):
+    return next((k for k in KERNELS if k in symbol), symbol)
+
+
 def _ptxas_report(log):
     """Per kernel: registers and spill bytes from the
     ``-Xptxas -v`` report of the build."""
@@ -119,9 +149,7 @@ def _ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in ("read_kernel", "combine_kernel",
-                                     "count_kernel") if k in m.group(1)),
-                        m.group(1))
+            name = _kernel_name(m.group(1))
             out[name] = {}
             continue
         if name is None:
@@ -147,9 +175,7 @@ def _sass_mma(lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k for k in ("read_kernel", "combine_kernel",
-                                     "count_kernel") if k in m.group(1)),
-                        m.group(1))
+            name = _kernel_name(m.group(1))
             out[name] = {"hmma": 0, "forms": set()}
             continue
         m = re.search(r"\b(HMMA\.\S+)", line)
@@ -162,20 +188,27 @@ def _sass_mma(lib_path):
 
 def build_phase():
     t = time.perf_counter()
-    path = bank_read_cuda.build()
-    log("build", f"{path} in {time.perf_counter() - t:.2f}s (nvcc "
-        f"{bank_read_cuda.build_seconds})")
-    ptxas = _ptxas_report(bank_read_cuda.build_log or "")
-    sass = _sass_mma(path)
-    for name in ("read_kernel", "combine_kernel", "count_kernel"):
+    paths = bank_read_cuda.build()
+    log("build", f"{paths} in {time.perf_counter() - t:.2f}s (nvcc, both "
+        f"libraries at once: {bank_read_cuda.build_seconds})")
+    ptxas, sass = {}, {}
+    for lib, path in paths.items():
+        ptxas.update(_ptxas_report(bank_read_cuda.build_log.get(lib, "")))
+        sass.update(_sass_mma(path))
+    for name in KERNELS:
         log("build", f"{name}: ptxas {ptxas.get(name)}, SASS "
             f"{sass.get(name)}")
     for name in ("read_kernel", "count_kernel"):
         check(sass.get(name, {}).get("hmma", 0) > 0 and
               all("TF32" in f for f in sass[name]["forms"]),
               f"{name} runs on the tensor cores in TF32")
+    for name in ("read_bf16_kernel", "count_bf16_kernel"):
+        check(sass.get(name, {}).get("hmma", 0) > 0 and
+              all(f.startswith("HMMA.16816.F32.BF16")
+                  for f in sass[name]["forms"]),
+              f"{name} runs on the tensor cores as HMMA.16816.F32.BF16")
     return {name: {**ptxas.get(name, {}), "sass_mma": sass.get(name)}
-            for name in ("read_kernel", "combine_kernel", "count_kernel")}
+            for name in KERNELS}
 
 
 def _plain(q, keys, values, valid, occ):
@@ -351,6 +384,143 @@ def kernel_phase():
     return errs, timing
 
 
+def _sdpa_bf16(q, keys, values, valid):
+    """One bf16 ``scaled_dot_product_attention`` call over both objects
+    with the validity mask, on the first backend that takes it: (fn,
+    backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qb = q[None, None].expand(OBJ, 1, *q.shape)
+    args = (qb, keys[:, None], values[:, None])
+    mask = valid[:, None, None, :]
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(*args, attn_mask=mask)
+        try:
+            fn()
+        except RuntimeError:
+            continue
+        return fn, backend.name
+    raise RuntimeError("no SDPA backend takes the bf16 read")
+
+
+def kernel_phase_bf16():
+    """The bf16 read (with the float32 combine) and count against their
+    plain versions on a bf16 bank at the main path's shapes."""
+    dev, bf = DEV, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    keys = torch.randn(OBJ, N, DK, device=dev, generator=g).to(bf)
+    values = torch.randn(OBJ, N, DV, device=dev, generator=g).to(bf)
+    q = (3.0 * torch.randn(P, DK, device=dev, generator=g)).to(bf)
+    rand_valid = (torch.rand(OBJ, N, device=dev, generator=g) < 0.9)
+    none_valid = torch.zeros(OBJ, N, dtype=torch.bool, device=dev)
+    cases = {   # name: (valid, occ, splits or None)
+        "full": (rand_valid, N, None),
+        "occ20000": (rand_valid, 20000, None),
+        "occ9000_s5": (rand_valid, 9000, 5),
+        "all_invalid_occ0": (none_valid, 0, None),
+    }
+    chunk = attention.OCC_CHUNK
+    errs, timing = {}, {}
+    for name, (valid, occ, splits) in cases.items():
+        occ_t = torch.tensor([occ], dtype=torch.int32, device=dev)
+        if splits is None:
+            splits = bank_read_cuda.default_splits(
+                OBJ, P, torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
+        parts = bank_read_cuda.bank_read_partials(q, keys, values, valid,
+                                                  occ_t, chunk, splits)
+        mem_k, m_k, l_k, _ = bank_read_cuda.bank_read_combine(*parts, THRES)
+        mem_p, m_p, l_p, log_thres, cnt_p = _plain(q, keys, values, valid,
+                                                   occ)
+        cnt_k = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres,
+                                          chunk)
+        torch.cuda.synchronize()
+        check(torch.isfinite(mem_k).all().item(), f"bf16 {name}: mem finite")
+        mem_err = (mem_k - mem_p).abs().max().item()
+        cnt_diff = (cnt_k - cnt_p).abs()
+        n_visit = attention.visited_slots(N, chunk, occ)
+        beyond = cnt_k[:, min(n_visit, N):].abs().sum().item()
+        log("kernels_bf16", f"{name} (P {P}, N {N}, occ {occ}, S {splits}): "
+            f"mem max|err| {mem_err:.3e}, m max|err| "
+            f"{(m_k - m_p).abs().max().item():.3e}, l max rel err "
+            f"{((l_k - l_p) / l_p).abs().max().item():.3e}, cnt slots "
+            f"differing {int((cnt_diff > 0).sum())} (max |diff| "
+            f"{cnt_diff.max().item()}), cnt total {cnt_k.sum().item():.0f}, "
+            f"cnt beyond bound {beyond}")
+        check(torch.allclose(mem_k, mem_p, **MEM_TOL_BF16),
+              f"bf16 {name}: mem within rtol 1e-2 atol 2e-3")
+        check(cnt_diff.max().item() <= 1.0,
+              f"bf16 {name}: cnt |diff| <= 1 per slot")
+        check(beyond == 0, f"bf16 {name}: no counts beyond the bound")
+        errs[name] = (mem_err, cnt_diff.max().item())
+        if name == "all_invalid_occ0":
+            want = values[:, :n_visit].float().mean(1, keepdim=True)
+            check(cnt_k.sum().item() == 0, f"bf16 {name}: counts are 0")
+            check(torch.allclose(mem_k, want.expand_as(mem_k),
+                                 **MEM_TOL_BF16),
+                  f"bf16 {name}: mem is the mean of the first {n_visit} "
+                  f"values")
+        if name == "occ20000":
+            unbounded = _plain(q, keys, values, valid, N)[0]
+            check(not torch.allclose(mem_k, unbounded, **MEM_TOL_BF16),
+                  "bf16 occ20000: the unbounded read differs")
+        if name != "full":
+            continue
+        check(cnt_k.sum().item() > 0, "bf16 full bank has nonzero counts")
+        read_ms = time_ms(lambda: bank_read_cuda.bank_read(
+            q, keys, values, valid, occ_t, chunk, THRES))
+        read_kernel_ms = time_ms(lambda: bank_read_cuda.bank_read_partials(
+            q, keys, values, valid, occ_t, chunk, splits))
+        count_ms = time_ms(lambda: bank_read_cuda.bank_count(
+            q, keys, valid, occ_t, log_thres, chunk))
+        plain_read_ms = time_ms(lambda: [attention._read_occ_sweep(
+            keys[o], values[o], valid[o], q, chunk, occ)
+            for o in range(OBJ)], reps=5)
+        plain_count_ms = time_ms(lambda: [attention._count_occ_sweep(
+            keys[o], valid[o], q, log_thres[o], chunk, occ)
+            for o in range(OBJ)], reps=5)
+        sdpa, backend = _sdpa_bf16(q, keys, values, valid)
+        sdpa_ms = time_ms(sdpa, reps=5)
+        # a reference, not the same function: cuBLAS bf16 q @ keys^T, the
+        # scores the count compares, written out in full
+        scores_ms = time_ms(lambda: torch.matmul(q, keys.transpose(1, 2)),
+                            reps=5)
+        n_vis = n_visit
+        read_flop = OBJ * 2 * P * n_vis * (DK + DV)
+        read_bytes = 2 * (P * DK + OBJ * n_vis * (DK + DV)) \
+            + 4 * OBJ * P * (DV + 3) + OBJ * n_vis
+        count_flop = OBJ * 2 * P * n_vis * DK
+        count_bytes = 2 * (P * DK + OBJ * n_vis * DK) \
+            + 4 * (OBJ * P + OBJ * N) + OBJ * n_vis
+
+        def bound(flop, n_bytes):
+            t_ops, t_bytes = flop / BF16_PEAK, n_bytes / HBM_RATE
+            return (1e3 * max(t_ops, t_bytes),
+                    "operations" if t_ops > t_bytes else "bytes")
+
+        timing = dict(
+            bank_read_bf16=(read_ms, plain_read_ms, sdpa_ms,
+                            *bound(read_flop, read_bytes),
+                            {"read_kernel_ms": read_kernel_ms,
+                             "splits": splits, "sdpa_backend": backend}),
+            bank_count_bf16=(count_ms, plain_count_ms, None,
+                             *bound(count_flop, count_bytes),
+                             {"reference_cublas_bf16_scores_ms":
+                              scores_ms}))
+        log("kernels_bf16", f"full: read + combine {read_ms:.3f} ms (read "
+            f"kernel {read_kernel_ms:.3f}, S {splits}; plain "
+            f"{plain_read_ms:.3f}, sdpa {backend} {sdpa_ms:.3f}, bound "
+            f"{timing['bank_read_bf16'][3]:.3f}); count {count_ms:.3f} ms "
+            f"(plain {plain_count_ms:.3f}, bound "
+            f"{timing['bank_count_bf16'][3]:.3f}, cuBLAS bf16 scores "
+            f"{scores_ms:.3f})")
+    del keys, values, q, rand_valid, none_valid, cases, parts
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
 def synthetic_clip(n, h, w, seed):
     """Seeded frames with a textured sky above a rippling lower half, and a
     first mask of the lower half as water (label 1)."""
@@ -369,15 +539,21 @@ def synthetic_clip(n, h, w, seed):
     return frames, water.astype(np.uint8)
 
 
-def main_path_phase(model):
+def main_path_phase(model, kernels):
+    """The engine of ``model`` (and a bank of its compute dtype) on eight
+    synthetic 1080p frames; each of ``kernels`` (and no other bank kernel)
+    must launch once per frame."""
     frames, mask0 = synthetic_clip(9, *FRAME_HW, SEED)
-    fb = FeatureBank(obj_n=2, memory_budget=BUDGET, device=DEV)
+    fb = FeatureBank(obj_n=2, memory_budget=BUDGET, dtype=model.dtype,
+                     device=DEV)
     check(fb.class_budget == N, "98,304 slots per object")
     eng = VideoSegEngine(model, fb, downsample=DOWNSAMPLE,
                          postprocess="device")
-    bank_read_cuda.reset_launches()
     state = eng.bootstrap(frames[0], mask0)
+    check(state.keys.dtype == model.dtype and
+          state.usage.dtype == torch.float32, "bank dtypes")
     step_ms, labels = [], []
+    bank_read_cuda.reset_launches()
     for i, f in enumerate(frames[1:]):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -391,30 +567,31 @@ def main_path_phase(model):
         check(arr.shape == FRAME_HW and arr.dtype == np.uint8,
               f"label shape {arr.shape} {arr.dtype}")
         check(set(np.unique(arr)) <= {0, 1}, "labels in {0, 1}")
-    check(all(v == len(frames) - 1 for v in launches.values()),
-          f"main path launched read, combine and count once per frame: "
-          f"{launches}")
+    want = {k: (len(frames) - 1 if k in kernels else 0) for k in launches}
+    check(launches == want, f"main path launched {kernels} once per "
+          f"frame and no other bank kernel: {launches}")
     warm = step_ms[1:]
     water = float(np.mean([eng.fetch_label(lab).mean() for lab in labels]))
     h, w = short_side_size(*FRAME_HW, DOWNSAMPLE)
-    log("main", f"trained weights, 8 steps of {FRAME_HW} -> {(h, w)} (P = "
-        f"{-(-h // 16) * -(-w // 16)}): first step {step_ms[0]:.1f} ms, "
-        f"then per step {['%.1f' % s for s in warm]} ms, median "
-        f"{np.median(warm):.1f} ms = {1e3 / np.median(warm):.2f} frames/s; "
-        f"occ {state.occ.tolist()}; launches {launches}; water fraction "
-        f"{water:.3f}")
+    log("main", f"{model.dtype}, trained weights, 8 steps of {FRAME_HW} -> "
+        f"{(h, w)} (P = {-(-h // 16) * -(-w // 16)}): first step "
+        f"{step_ms[0]:.1f} ms, then per step {['%.1f' % s for s in warm]} "
+        f"ms, median {np.median(warm):.1f} ms = "
+        f"{1e3 / np.median(warm):.2f} frames/s; occ {state.occ.tolist()}; "
+        f"launches {launches}; water fraction {water:.3f}")
     return launches, state, eng
 
 
 def small_agreement_phase(model):
     """The same engine on a 240-px clip, on the card (kernels) and on the
-    CPU (plain versions), from the same weights."""
+    CPU (plain versions), from the same weights: (label agreement, the
+    CPU's labels)."""
     frames, mask0 = synthetic_clip(4, 240, 427, SEED + 1)
     out = {}
     for dev in (DEV, torch.device("cpu")):
         m = copy.deepcopy(model).to(dev)
         eng = VideoSegEngine(m, FeatureBank(obj_n=2, memory_budget=65_536,
-                                            device=dev),
+                                            dtype=model.dtype, device=dev),
                              downsample=240, postprocess="device")
         state = eng.bootstrap(frames[0], mask0)
         labs = []
@@ -423,9 +600,9 @@ def small_agreement_phase(model):
             labs.append(eng.fetch_label(lab))
         out[dev.type] = np.stack(labs)
     agree = float((out[DEV.type] == out["cpu"]).mean())
-    log("main", f"small clip 240x427, 3 steps: card vs CPU label agreement "
-        f"{agree:.6f}")
-    check(agree > 0.999, "card and CPU engines agree on > 99.9% of pixels")
+    log("main", f"{model.dtype}, small clip 240x427, 3 steps: card vs CPU "
+        f"label agreement {agree:.6f}")
+    return agree, out["cpu"]
 
 
 def full_bank_phase(eng, state):
@@ -452,11 +629,13 @@ def full_bank_phase(eng, state):
     check(min(evicted) > 0, f"eviction ran: {evicted}")
     check(bool(torch.isfinite(state.keys).all() and
                torch.isfinite(state.values).all()), "bank finite")
-    log("full_bank", f"2 steps at occ {cap}: {['%.1f' % s for s in step_ms]} "
+    log("full_bank", f"{state.keys.dtype} bank, 2 steps at occ {cap}: "
+        f"{['%.1f' % s for s in step_ms]} "
         f"ms; evicted {evicted}")
 
 
-def kernel_rows(errs, timing, launches, build):
+def kernel_rows(errs, timing, launches, build, errs16, timing16,
+                launches16):
     """One row per kernel for the result's JSON line."""
     rows = []
     for name, kernel, idx in (("bank_read", "read_kernel", 0),
@@ -475,7 +654,28 @@ def kernel_rows(errs, timing, launches, build):
             "bound_by": bound_by, "library_ms": lib_ms,
             "bound_f32_cuda_cores_ms": f32_ms, **(extra or {}),
             **build[kernel]})
+    for name, kernel, idx in (("bank_read_bf16", "read_bf16_kernel", 0),
+                              ("bank_count_bf16", "count_bf16_kernel", 1)):
+        ms, plain_ms, lib_ms, bound_ms, bound_by, extra = timing16[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "vfloodnet_tpu_torch/csrc/bank_read_bf16.cu",
+            "replaces": "vfloodnet_tpu/ops/attention_pallas.py:"
+                        f"{67 if name == 'bank_count_bf16' else 29}",
+            "launches": launches16[name],
+            "max_abs_err": max(e[idx] for e in errs16.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, **extra,
+            **build[kernel]})
     return rows
+
+
+def bf16_model(model):
+    """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
+    which is left as it was."""
+    m16 = AFBURR(dtype=torch.bfloat16).to(DEV).eval()
+    m16.load_state_dict(model.state_dict())
+    return m16
 
 
 def main():
@@ -486,10 +686,36 @@ def main():
     build = build_phase()
     errs, timing = kernel_phase()
     model = load_afb_urr(default_checkpoint("video"), device=DEV)
-    launches, state, eng = main_path_phase(model)
-    small_agreement_phase(model)
+    launches, state, eng = main_path_phase(
+        model, ("bank_read", "bank_read_combine", "bank_count"))
+    agree, cpu32 = small_agreement_phase(model)
+    check(agree > 0.999, "card and CPU engines agree on > 99.9% of pixels")
     full_bank_phase(eng, state)
-    kernels = kernel_rows(errs, timing, launches, build)
+    del eng, state
+    torch.cuda.empty_cache()
+    errs16, timing16 = kernel_phase_bf16()
+    model16 = bf16_model(model)
+    launches16, state16, eng16 = main_path_phase(
+        model16, ("bank_read_bf16", "bank_read_combine", "bank_count_bf16"))
+    check(eng16.model.keyval_r4.conv.weight.dtype == torch.bfloat16 and
+          eng16.model.keyval_r4.conv.bias.dtype == torch.float32,
+          "the bf16 engine cast its conv kernels and kept its biases")
+    check(all(p.dtype == torch.float32 for p in model.parameters()) and
+          all(p.dtype == torch.float32 for p in model16.parameters()),
+          "building the bf16 engine left the callers' float32 weights")
+    agree16, cpu16 = small_agreement_phase(model16)
+    # bf16 labels on this clip move with any change of rounding order (the
+    # convolutions of cuDNN and of the CPU sum in other orders), so the
+    # card's bf16 labels are held to the CPU's as closely as bf16 itself
+    # keeps to float32 on the CPU, less 0.01
+    gap = float((cpu16 == cpu32).mean())
+    log("main", f"bf16 card vs CPU agreement {agree16:.6f}; bf16 vs float32 "
+        f"on the CPU {gap:.6f}; bar {gap - 0.01:.6f}")
+    check(agree16 >= gap - 0.01, "the bf16 card and CPU engines agree as "
+          "well as bf16 and float32 do on the CPU, less 0.01")
+    full_bank_phase(eng16, state16)
+    kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
+                          launches16)
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

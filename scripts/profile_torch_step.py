@@ -3,7 +3,9 @@
 card.
 
 Drives the port's main path (trained AFB-URR, 1080p synthetic frames at
-the 480 operating point, two objects, 250,000-feature budget) and reports,
+the 480 operating point, two objects, 250,000-feature budget) in the
+compute dtype ``--dtype`` (float32, or bfloat16: the model and the bank in
+bf16, the bf16 read and count kernels) and reports,
 for a bank at the main path's occupancy and for a full bank (98,304 slots
 per object):
 
@@ -22,11 +24,12 @@ per object):
 
 Run from the repository root on a GPU machine:
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py [--dtype bfloat16]
 
 Prints one JSON line per bank state.
 """
 
+import argparse
 import json
 import os
 import re
@@ -64,11 +67,11 @@ def _timed(fn, name, acc):
 
 def _group(name):
     n = name.lower()
-    # csrc/bank_read.cu: the read and its combine, then the count (no letter
-    # before the name, so not thread_kernel; before "gemm"'s sm90)
-    if re.search(r"(?<![a-z])(read|combine)_kernel", n):
+    # csrc/bank_read*.cu: the reads and the combine, then the counts (no
+    # letter before the name, so not thread_kernel; before "gemm"'s sm90)
+    if re.search(r"(?<![a-z])(read(_bf16)?|combine)_kernel", n):
         return "bank_read_kernel"
-    if re.search(r"(?<![a-z])count_kernel", n):
+    if re.search(r"(?<![a-z])count(_bf16)?_kernel", n):
         return "bank_count_kernel"
     if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "winograd",
                             "fft", "nchw", "nhwc")):
@@ -164,6 +167,11 @@ def device_profile(eng, state, frames, first_idx):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32",
+                        help="compute dtype of the model and the bank")
+    dtype = getattr(torch, parser.parse_args().dtype)
     if not torch.cuda.is_available():
         print("profile_torch_step: CUDA is not available", file=sys.stderr)
         sys.exit(1)
@@ -174,8 +182,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     dev = torch.device("cuda")
-    model = load_afb_urr(default_checkpoint("video"), device=dev)
-    fb = FeatureBank(obj_n=2, memory_budget=250_000, device=dev)
+    model = load_afb_urr(default_checkpoint("video"), device=dev,
+                         dtype=dtype)
+    fb = FeatureBank(obj_n=2, memory_budget=250_000, dtype=dtype, device=dev)
     eng = video_seg.VideoSegEngine(model, fb, downsample=480,
                                    postprocess="device")
     frames, mask0 = chip_smoke.synthetic_clip(1 + 3 + 3 * STEPS + 1, 1080,
@@ -198,7 +207,8 @@ def main():
                                         frames[4 + STEPS:4 + 2 * STEPS], 30)
         state, prof = device_profile(eng, state,
                                      frames[4 + 2 * STEPS:], 40)
-        row = {"bank": bank, "occ_at_start": occ, "card": smi,
+        row = {"bank": bank, "dtype": str(dtype), "occ_at_start": occ,
+               "card": smi,
                "weights": "trained", "steps": STEPS,
                "stage_ms_median": stages,
                "unsynced_step_ms": step_ms, **prof,

@@ -28,7 +28,9 @@ def test_library_name_hashes_every_source_and_header(tmp_path, monkeypatch):
 
 def test_the_package_sources_are_hashed():
     names = [os.path.basename(p) for p in bank_read_cuda._csrc_files()]
-    assert "bank_read.cu" in names
+    assert {"bank_read.cu", "bank_read_bf16.cu", "bank_common.cuh"} <= \
+        set(names)
+    assert set(bank_read_cuda.SOURCES.values()) <= set(names)
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +55,13 @@ def profile():
     ("(anonymous namespace)::count_kernel(float const*, float const*, "
      "unsigned char const*, int const*, float const*, float*, int, int, "
      "int, float)", "bank_count_kernel"),
+    ("(anonymous namespace)::read_bf16_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, unsigned char const*, "
+     "int const*, float*, float*, float*, int, int, int, int, float)",
+     "bank_read_kernel"),
+    ("(anonymous namespace)::count_bf16_kernel(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, unsigned char const*, int const*, float const*, "
+     "float*, int, int, int, float)", "bank_count_kernel"),
     ("void at::native::elementwise_kernel<128, 2, thread_kernel>(int)",
      "other"),
     ("ampere_sgemm_128x64_nn", "gemm"),

@@ -1,13 +1,17 @@
-"""The CUDA bank read, combine and count kernels against their plain PyTorch
-versions, on the card. Marked ``cuda``; each test skips where there is no
-GPU. Run on a GPU machine with
+"""The CUDA bank read, combine and count kernels (float32 and bf16) against
+their plain PyTorch versions, on the card. Marked ``cuda``; each test skips
+where there is no GPU. Run on a GPU machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (``tests/conftest.py`` sets up JAX, which this file does not need).
 
 Tolerances: mem rtol 2e-4, atol 2e-5; counts |diff| <= 1 per slot; m rtol
 1e-5 / atol 1e-5 and l rtol 1e-4 against the plain read; the combine kernel
 against ``combine_partials`` on the same partials: rtol 1e-5, atol 1e-6
-(the same arithmetic, with exp and log of another library).
+(the same arithmetic, with exp and log of another library). The bf16
+kernels on bf16 banks: mem rtol 1e-2 / atol 2e-3 (one bf16 ulp is 3.9e-3
+relative), counts within 1, m rtol 1e-5 / atol 1e-5 and l rtol 1e-4 (their
+float32 sums of exact bf16 products, in another order than the plain
+version's).
 """
 
 import math
@@ -28,7 +32,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _bank(dev, obj, n, p, seed, prefix=None):
+def _bank(dev, obj, n, p, seed, prefix=None, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(seed)
     keys = torch.randn(obj, n, 128, device=dev, generator=g)
     values = torch.randn(obj, n, 512, device=dev, generator=g)
@@ -36,7 +40,8 @@ def _bank(dev, obj, n, p, seed, prefix=None):
     if prefix is not None:
         valid[:, prefix:] = False
     q = 3.0 * torch.randn(p, 128, device=dev, generator=g)
-    return keys, values, valid.contiguous(), q
+    return (keys.to(dtype), values.to(dtype), valid.contiguous(),
+            q.to(dtype))
 
 
 def _occ(occ, dev):
@@ -138,9 +143,83 @@ def test_dispatcher_counts_launches_and_refuses_bad_input(dev):
                                   occ_bound=torch.tensor(300, device=dev))
     assert bank_read_cuda.launches == {"bank_read": 1,
                                        "bank_read_combine": 1,
-                                       "bank_count": 1}
+                                       "bank_count": 1,
+                                       "bank_read_bf16": 0,
+                                       "bank_count_bf16": 0}
     with pytest.raises(ValueError):
         attention.bank_attention_read(keys, values, valid, q.double())
     with pytest.raises(ValueError):
         attention.bank_attention_read(keys[:, :, :64].contiguous(),
                                       values, valid, q[:, :64].contiguous())
+
+
+# bf16 banks: ragged P and N, bounds inside segments, S = 1..MAX_SPLITS and
+# all-invalid banks: (n, p, chunk, occ, splits, prefix). Valid slots past
+# the bound stay valid unless prefix says otherwise.
+@pytest.mark.parametrize("n,p,chunk,occ,splits,prefix", [
+    (1000, 37, 256, None, 1, None),    # ragged N and P, no bound, S = 1
+    (1000, 37, 256, 300, 3, None),     # 512 visited: 192 + 192 + 128
+    (1000, 100, 256, 1000, 5, None),   # 24 padding slots past N
+    (640, 1, 128, 0, 8, 0),            # all invalid at occupancy 0, S = 8
+    (700, 20, 8192, 700, 2, 0),        # all invalid, N below the chunk
+    (20000, 64, 8192, 9000, 5, None),  # bound inside segment 4 of 5
+    (20000, 129, 8192, 20000, 4, None),  # ragged N, last segment padded
+    (5000, 65, 1024, 4000, 6, None),   # P one past two query tiles
+    (3000, 50, 512, 2500, 7, None),
+])
+def test_bf16_kernels_match_plain(dev, n, p, chunk, occ, splits, prefix):
+    keys, values, valid, q = _bank(dev, 2, n, p, seed=11 * n + p,
+                                   prefix=prefix, dtype=torch.bfloat16)
+    occ_t = _occ(occ, dev)
+    parts = bank_read_cuda.bank_read_partials(q, keys, values, valid, occ_t,
+                                              chunk, splits)
+    mem, m, l, log_thres = bank_read_cuda.bank_read_combine(*parts, 1e-3)
+    cnt = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres, chunk)
+    bound = n if occ is None else occ
+    n_visit = attention.visited_slots(n, chunk, bound)
+    seg = attention.segment_length(n_visit, splits, bank_read_cuda.READ_TILE)
+    for o in range(2):
+        want_mem, wm, wl = attention._read_occ_sweep(
+            keys[o], values[o], valid[o], q, chunk, bound)
+        torch.testing.assert_close(mem[o], want_mem, rtol=1e-2, atol=2e-3)
+        torch.testing.assert_close(m[o], wm, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l[o], wl, rtol=1e-4, atol=0)
+        want_cnt = attention._count_occ_sweep(keys[o], valid[o], q,
+                                              log_thres[o], chunk, bound)
+        assert (cnt[o] - want_cnt).abs().max().item() <= 1.0
+        assert cnt[o, min(n_visit, n):].abs().sum().item() == 0
+        if prefix == 0:
+            assert cnt[o].sum().item() == 0
+            want = values[o, :n_visit].float().mean(0).expand_as(mem[o])
+            if n_visit <= n:
+                torch.testing.assert_close(mem[o], want, rtol=1e-2,
+                                           atol=2e-3)
+        wms, wls, waccs = attention._read_occ_segments(
+            keys[o], values[o], valid[o], q, chunk, bound, splits)
+        for s_ in range(splits):
+            if s_ * seg >= n_visit:   # an empty segment weighs nothing
+                assert (parts[0][o, s_] == -math.inf).all()
+                assert (parts[1][o, s_] == 0).all()
+                continue
+            torch.testing.assert_close(parts[0][o, s_], wms[s_], rtol=1e-5,
+                                       atol=1e-5)
+            torch.testing.assert_close(parts[1][o, s_], wls[s_], rtol=1e-4,
+                                       atol=0)
+
+
+def test_bf16_dispatch_counts_launches_and_never_falls_back(dev):
+    keys, values, valid, q = _bank(dev, 2, 512, 24, seed=6,
+                                   dtype=torch.bfloat16)
+    bank_read_cuda.reset_launches()
+    mem, cnt = attention.bank_attention_read(
+        keys, values, valid, q.float(), occ_bound=torch.tensor(300,
+                                                               device=dev))
+    assert mem.dtype == torch.bfloat16 and cnt.dtype == torch.float32
+    assert bank_read_cuda.launches == {
+        "bank_read": 0, "bank_read_combine": 1, "bank_count": 0,
+        "bank_read_bf16": 1, "bank_count_bf16": 1}
+    with pytest.raises(ValueError):   # mixed bank dtypes
+        attention.bank_attention_read(keys, values.float(), valid, q)
+    with pytest.raises(ValueError):   # no kernel for float16
+        attention.bank_attention_read(keys.half(), values.half(), valid,
+                                      q.half())

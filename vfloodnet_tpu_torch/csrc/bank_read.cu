@@ -37,49 +37,18 @@
 // scores the read took its maximum over. tests/test_torch_bank_read_numerics.py
 // emulates this rounding in numpy and holds it against the JAX package.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <math.h>
+
+#include "bank_common.cuh"
 
 namespace {
 
-constexpr int DK = 128;
-constexpr int DV = 512;
-constexpr float NEG = -1e30f;   // masked score, as in the JAX kernels
-constexpr int QT = 64;          // query rows per tile (4 warps x 16 rows)
 // Row stride (floats) of q and k tiles in shared memory: 8 mod 32, so that
 // the 8-byte fragment loads of a half-warp hit 32 distinct banks.
 constexpr int KS = DK + 8;
 // Row stride of value tiles: 4 mod 16, so that the B-fragment loads of the
 // P V product (rows 2t and 2t+1, columns g) hit 32 distinct banks.
 constexpr int VS = DV + 4;
-
-__device__ __forceinline__ int visited_slots(const int* occ_bound, int n,
-                                             int chunk) {
-  if (occ_bound == nullptr) return n;
-  const int c = min(chunk, n);
-  const int n_chunks = (n + c - 1) / c;
-  const int occ = max(*occ_bound, 0);
-  const int it = max(1, min((occ + c - 1) / c, n_chunks));
-  return it * c;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = pred ? 16 : 0;   // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
-}
 
 // Starts the copy of rows [row0, row0 + ROWS) of a [*, WIDTH] matrix into
 // shared memory with row stride STRIDE; rows at or beyond `limit` are
@@ -188,16 +157,6 @@ __device__ __forceinline__ void warp_scores(const float* q_s, const float* k_s,
 #pragma unroll
   for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
   warp_scores_part<NT, 0, DK>(q_s, k_s, s);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Adaptive Feature Bank as fixed-capacity tensors (counterpart of
 ``vfloodnet_tpu.memory.feature_bank``).
 
-Per object, ``capacity`` pre-allocated float32 slots of keys and values with a
+Per object, ``capacity`` pre-allocated slots of keys and values (float32,
+or bfloat16 with ``dtype``; the bookkeeping stays float32 and int32) with a
 validity mask, the frame each slot was written, its accumulated log usage,
 and the occupancy ``occ``: all valid slots lie in ``[0, occ)``, so reads and
 matches cost O(occupancy) like the reference's growing bank.
@@ -30,8 +31,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class FeatureBankState:
-    keys: torch.Tensor       # [obj_n, cap, dk]
-    values: torch.Tensor     # [obj_n, cap, dv]
+    keys: torch.Tensor       # [obj_n, cap, dk] in the bank's dtype
+    values: torch.Tensor     # [obj_n, cap, dv] in the bank's dtype
     valid: torch.Tensor      # [obj_n, cap] bool
     birth: torch.Tensor      # [obj_n, cap] f32, frame the slot was written
     usage: torch.Tensor      # [obj_n, cap] f32, accumulated log usage
@@ -56,7 +57,8 @@ class FeatureBank:
 
     def __init__(self, obj_n: int, memory_budget: int = 250_000,
                  update_rate: float = 0.1, thres_close: float = 0.95,
-                 keydim: int = 128, valdim: int = 512, device="cuda"):
+                 keydim: int = 128, valdim: int = 512,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         self.obj_n = obj_n
         class_budget = memory_budget // obj_n
         if obj_n == 2:
@@ -69,6 +71,7 @@ class FeatureBank:
         self.thres_close = thres_close
         self.keydim = keydim
         self.valdim = valdim
+        self.dtype = dtype
         self.device = resolve_device(device)
 
     def empty(self) -> FeatureBankState:
@@ -76,8 +79,10 @@ class FeatureBank:
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         return FeatureBankState(
-            keys=torch.zeros((o, cap, self.keydim), **f32),
-            values=torch.zeros((o, cap, self.valdim), **f32),
+            keys=torch.zeros((o, cap, self.keydim), dtype=self.dtype,
+                             device=dev),
+            values=torch.zeros((o, cap, self.valdim), dtype=self.dtype,
+                               device=dev),
             valid=torch.zeros((o, cap), dtype=torch.bool, device=dev),
             birth=torch.zeros((o, cap), **f32),
             usage=torch.zeros((o, cap), **f32),
@@ -94,8 +99,8 @@ class FeatureBank:
             raise ValueError(f"first-frame features ({p}) exceed per-class "
                              f"budget ({self.class_budget})")
         state = self.empty()
-        state.keys[:, :p] = keys
-        state.values[:, :p] = values
+        state.keys[:, :p] = keys.to(self.dtype)
+        state.values[:, :p] = values.to(self.dtype)
         state.valid[:, :p] = True
         state.birth[:, :p] = frame_idx
         state.peak_n.fill_(p)
@@ -123,8 +128,8 @@ class FeatureBank:
             d = torch.where(rank < n - occ, occ + rank, victim)
             rows = torch.nonzero(d < n).squeeze(1)
             d = d[rows]
-            state.keys[o, d] = keys[o, rows]
-            state.values[o, d] = values[o, rows]
+            state.keys[o, d] = keys[o, rows].to(self.dtype)
+            state.values[o, d] = values[o, rows].to(self.dtype)
             state.birth[o, d] = float(frame_idx)
             state.usage[o, d] = 20.0   # FeatureBank.py:46
             state.valid[o, d] = True
@@ -153,7 +158,7 @@ class FeatureBank:
             occ_o, stats = bank_merge_append(
                 state.keys[o], state.values[o], state.valid[o],
                 state.birth[o], state.usage[o],
-                new_keys[o], new_values[o],
+                new_keys[o].to(self.dtype), new_values[o].to(self.dtype),
                 float(frame_idx), occ[o], occ_bound,
                 update_rate=self.update_rate, thres_close=self.thres_close)
             occ_new.append(occ_o)

@@ -10,6 +10,13 @@ refinement.
 The public methods keep the JAX package's layout: frames NHWC in [0, 1],
 masks [obj_n, H, W], keys and values [n, P, d] with P = h16 * w16 in
 row-major order, the bank [obj_n, N, d]. Inside, the convolutions run NCHW.
+
+``AFBURR(dtype=torch.bfloat16)`` computes in bf16 with the JAX package's
+casts: the frame is normalised in float32 and cast at the encoders, the
+mask at ``memorize``, the bank read's ``mem`` at ``decode_with_memory``;
+the decoder's rough map is a float32 softmax cast back, the uncertainty is
+float32, and the score is taken in float32. The query keys go to the read
+as float32, and the read casts them to the bank's dtype.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch.nn.functional as F
 
 from ..ops import (bank_attention_read, calc_uncertainty, local_avg_pool,
                    local_max_pool, pad_divide_by, unpad)
-from .resnet import ResNet50Backbone
+from .resnet import Conv2d, ResNet50Backbone
 
 KEYDIM, VALDIM = 128, 512
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -30,29 +37,32 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def _normalize(frame: torch.Tensor) -> torch.Tensor:
+    """ImageNet normalisation in float32."""
+    frame = frame.float()
     mean = frame.new_tensor(IMAGENET_MEAN)[None, :, None, None]
     std = frame.new_tensor(IMAGENET_STD)[None, :, None, None]
     return (frame - mean) / std
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
-    """2x bilinear, half-pixel centres (align_corners=False)."""
-    return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
-                         mode="bilinear", align_corners=False)
+    """2x bilinear, half-pixel centres (align_corners=False), computed in
+    float32 and cast back to x's dtype."""
+    return F.interpolate(x.float(), size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                         mode="bilinear", align_corners=False).to(x.dtype)
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+def _conv3(cin: int, cout: int, dtype: torch.dtype) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1, dtype=dtype)
 
 
 class ResBlock(nn.Module):
     """Pre-activation residual block (reference AFB_URR.py:10-30); the
     checkpoint's blocks all keep their width, so there is no downsample."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype):
         super().__init__()
-        self.conv1 = _conv3(channels, channels)
-        self.conv2 = _conv3(channels, channels)
+        self.conv1 = _conv3(channels, channels, dtype)
+        self.conv2 = _conv3(channels, channels, dtype)
 
     def forward(self, x):
         return x + self.conv2(F.relu(self.conv1(F.relu(x))))
@@ -62,11 +72,11 @@ class Refine(nn.Module):
     """Skip refinement with 2x upsample (AFB_URR.py:114-127), split into
     the object-independent :meth:`skip` and the per-object :meth:`refine`."""
 
-    def __init__(self, cin: int, channels: int):
+    def __init__(self, cin: int, channels: int, dtype: torch.dtype):
         super().__init__()
-        self.convFS = _conv3(cin, channels)
-        self.ResFS = ResBlock(channels)
-        self.ResMM = ResBlock(channels)
+        self.convFS = _conv3(cin, channels, dtype)
+        self.ResFS = ResBlock(channels, dtype)
+        self.ResMM = ResBlock(channels, dtype)
 
     def skip(self, f):
         return self.ResFS(self.convFS(f))
@@ -79,13 +89,15 @@ class EncoderM(nn.Module):
     """Memory encoder over frame + mask + inverse mask (AFB_URR.py:33-63):
     one 5-plane stem, the reference's conv1(f) + conv1_m(m) + conv1_o(o)."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype):
         super().__init__()
-        self.backbone = ResNet50Backbone(in_channels=5)
+        self.dtype = dtype
+        self.backbone = ResNet50Backbone(in_channels=5, dtype=dtype)
 
     def forward(self, frame, mask, mask_inv):
         """frame [n, 3, H, W] in [0, 1]; mask, mask_inv [n, 1, H, W]."""
-        x = torch.cat([_normalize(frame), mask, mask_inv], dim=1)
+        x = torch.cat([_normalize(frame).to(self.dtype),
+                       mask.to(self.dtype), mask_inv.to(self.dtype)], dim=1)
         r4, _, _, r1 = self.backbone(x)
         return r4, r1
 
@@ -93,21 +105,22 @@ class EncoderM(nn.Module):
 class EncoderQ(nn.Module):
     """Query encoder (AFB_URR.py:66-93)."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype):
         super().__init__()
-        self.backbone = ResNet50Backbone(in_channels=3)
+        self.dtype = dtype
+        self.backbone = ResNet50Backbone(in_channels=3, dtype=dtype)
 
     def forward(self, frame):
-        return self.backbone(_normalize(frame))
+        return self.backbone(_normalize(frame).to(self.dtype))
 
 
 class KeyValue(nn.Module):
     """Key and value heads (AFB_URR.py:96-111) as one 1024 -> dk + dv
     conv. Returns key [n, P, dk] and value [n, P, dv]."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype):
         super().__init__()
-        self.conv = _conv3(1024, KEYDIM + VALDIM)
+        self.conv = _conv3(1024, KEYDIM + VALDIM, dtype)
 
     def forward(self, x):
         n, _, h, w = x.shape
@@ -119,18 +132,19 @@ class Decoder(nn.Module):
     """Global decode + uncertainty-gated local refinement
     (AFB_URR.py:181-239)."""
 
-    def __init__(self, mdim_global: int = 256, mdim_local: int = 32,
-                 local_size: int = 7):
+    def __init__(self, dtype: torch.dtype, mdim_global: int = 256,
+                 mdim_local: int = 32, local_size: int = 7):
         super().__init__()
+        self.dtype = dtype
         self.local_size = local_size
-        self.convFM = _conv3(1024, mdim_global)
-        self.ResMM = ResBlock(mdim_global)
-        self.RF3 = Refine(512, mdim_global)
-        self.RF2 = Refine(256, mdim_global)
-        self.pred2 = _conv3(mdim_global, 2)
-        self.local_convFM = _conv3(128, mdim_local)
-        self.local_ResMM = ResBlock(mdim_local)
-        self.local_pred2 = _conv3(mdim_local, 2)
+        self.convFM = _conv3(1024, mdim_global, dtype)
+        self.ResMM = ResBlock(mdim_global, dtype)
+        self.RF3 = Refine(512, mdim_global, dtype)
+        self.RF2 = Refine(256, mdim_global, dtype)
+        self.pred2 = _conv3(mdim_global, 2, dtype)
+        self.local_convFM = _conv3(128, mdim_local, dtype)
+        self.local_ResMM = ResBlock(mdim_local, dtype)
+        self.local_pred2 = _conv3(mdim_local, 2, dtype)
 
     def forward(self, patch_match, r3, r2, r1, bs: int, obj_n: int):
         """patch_match [bs*obj_n, 1024, h16, w16]; skips r3, r2, r1 per
@@ -146,11 +160,11 @@ class Decoder(nn.Module):
         p = _upsample2(self.pred2(F.relu(p)))                        # 1/2
 
         n, _, h, w = p.shape
-        rough = torch.softmax(p, dim=1)[:, 1].reshape(bs, obj_n, h, w)
+        rough = torch.softmax(p.float(), dim=1)[:, 1].reshape(bs, obj_n, h, w)
         rough = torch.softmax(rough, dim=1)          # object-level norm
-        unc = calc_uncertainty(rough, obj_axis=1)    # [bs, 1, h, w]
+        unc = calc_uncertainty(rough, obj_axis=1)    # [bs, 1, h, w] float32
         unc = unc.repeat_interleave(obj_n, dim=0)
-        rough = rough.reshape(n, 1, h, w)
+        rough = rough.reshape(n, 1, h, w).to(self.dtype)
 
         r1_local = local_avg_pool(r1 * rough, self.local_size)
         r1_local = r1_local / (local_avg_pool(rough, self.local_size) + 1e-8)
@@ -158,22 +172,26 @@ class Decoder(nn.Module):
         q = self.local_ResMM(self.local_convFM(torch.cat([r1, r1_local], 1)))
         q = r1_conf * self.local_pred2(F.relu(q))
 
-        p = _upsample2(p + unc * q)                                  # 1/1
+        p = _upsample2(p + unc.to(self.dtype) * q)                   # 1/1
         # per-object log-odds: logit1 - logit0 of the 2-class softmax
+        p = p.float()
         score = p[:, 1] - p[:, 0]
         return score.reshape(bs, obj_n, 2 * h, 2 * w)
 
 
 class AFBURR(nn.Module):
-    """The full AFB-URR graph (see :meth:`memorize` and :meth:`segment`)."""
+    """The full AFB-URR graph (see :meth:`memorize` and :meth:`segment`),
+    computing in ``dtype`` (float32 or bfloat16)."""
 
-    def __init__(self, thres_valid: float = 1e-3):
+    def __init__(self, thres_valid: float = 1e-3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.thres_valid = thres_valid
-        self.encoder_m = EncoderM()
-        self.encoder_q = EncoderQ()
-        self.keyval_r4 = KeyValue()
-        self.decoder = Decoder()
+        self.dtype = dtype
+        self.encoder_m = EncoderM(dtype)
+        self.encoder_q = EncoderQ(dtype)
+        self.keyval_r4 = KeyValue(dtype)
+        self.decoder = Decoder(dtype)
 
     def memorize(self, frame: torch.Tensor, mask: torch.Tensor):
         """frame [H, W, 3] in [0, 1], mask [obj_n, H, W] ->
@@ -182,7 +200,7 @@ class AFBURR(nn.Module):
         frame, _ = pad_divide_by(frame[None], 16)
         mask, _ = pad_divide_by(mask[..., None], 16)
         frames = frame.permute(0, 3, 1, 2).expand(obj_n, -1, -1, -1)
-        mask = mask.permute(0, 3, 1, 2).to(frame.dtype)
+        mask = mask.permute(0, 3, 1, 2).to(self.dtype)
         r4, _ = self.encoder_m(frames, mask, torch.clamp(1.0 - mask, 0.0, 1.0))
         return self.keyval_r4(r4)
 
@@ -202,7 +220,7 @@ class AFBURR(nn.Module):
         h16, w16 = hw16
         bs, obj_n = mem.shape[:2]
         q_val = v4[:, None].expand(bs, obj_n, -1, -1)
-        feat = torch.cat([mem, q_val], dim=-1)
+        feat = torch.cat([mem.to(self.dtype), q_val], dim=-1)
         feat = feat.reshape(bs * obj_n, h16, w16, 2 * VALDIM)
         score = self.decoder(feat.permute(0, 3, 1, 2), r3, r2, r1, bs, obj_n)
         return unpad(score, pad, spatial_axes=(-2, -1))
@@ -218,7 +236,7 @@ class AFBURR(nn.Module):
         mems, usage = [], None
         for b in range(k4.shape[0]):
             mem, cnt = bank_attention_read(bank_keys, bank_values, bank_valid,
-                                           k4[b].contiguous(),
+                                           k4[b].float().contiguous(),
                                            thres=self.thres_valid,
                                            occ_bound=occ_bound)
             mems.append(mem)

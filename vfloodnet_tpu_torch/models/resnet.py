@@ -8,6 +8,10 @@ The JAX memory encoder adds its mask planes to the stem by concatenating
 their 7x7 kernels (``StemKernel``) to the frame's along the input channels;
 here the weight bridge does that concatenation once, so the stem is one
 ``in_channels``-plane convolution.
+
+Every module takes the compute ``dtype`` (float32 or bfloat16), as the JAX
+modules do: convolutions run in it, and the frozen BatchNorm normalises in
+float32 and casts its output back to it.
 """
 
 from __future__ import annotations
@@ -17,42 +21,64 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class FrozenBN(nn.Module):
-    """``(x - mean) * weight + bias`` per channel, where the weight bridge
-    folds the Flax ``scale`` and running ``var`` into ``weight = scale /
-    sqrt(var + eps)``."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``: the input, the kernel
+    (a no-op once ``cast_floating_params`` cast it) and the float32 bias
+    are cast to it at the call, as flax promotes them inside every apply.
+    ``F.conv2d`` refuses a bias of another dtype than its input, so the
+    stored bias stays float32 and is cast here."""
 
-    def __init__(self, channels: int):
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
+
+
+class FrozenBN(nn.Module):
+    """``(x - mean) * weight + bias`` per channel in float32, cast to
+    ``dtype``; the weight bridge folds the Flax ``scale`` and running
+    ``var`` into ``weight = scale / sqrt(var + eps)``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.register_buffer("weight", torch.ones(channels))
         self.register_buffer("bias", torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ((x - self.mean[:, None, None]) * self.weight[:, None, None]
-                + self.bias[:, None, None])
+        return ((x.float() - self.mean[:, None, None])
+                * self.weight[:, None, None]
+                + self.bias[:, None, None]).to(self.dtype)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1,
+          dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False,
+                  dtype=dtype)
 
 
 class Bottleneck(nn.Module):
     """torchvision-v1.5 bottleneck (stride on the 3x3 conv)."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cout = 4 * features
-        self.conv1 = _conv(cin, features, 1)
-        self.bn1 = FrozenBN(features)
-        self.conv2 = _conv(features, features, 3, stride)
-        self.bn2 = FrozenBN(features)
-        self.conv3 = _conv(features, cout, 1)
-        self.bn3 = FrozenBN(cout)
+        self.conv1 = _conv(cin, features, 1, dtype=dtype)
+        self.bn1 = FrozenBN(features, dtype)
+        self.conv2 = _conv(features, features, 3, stride, dtype)
+        self.bn2 = FrozenBN(features, dtype)
+        self.conv3 = _conv(features, cout, 1, dtype=dtype)
+        self.bn3 = FrozenBN(cout, dtype)
         self.downsample = cin != cout or stride != 1
         if self.downsample:
-            self.downsample_conv = _conv(cin, cout, 1, stride)
-            self.downsample_bn = FrozenBN(cout)
+            self.downsample_conv = _conv(cin, cout, 1, stride, dtype)
+            self.downsample_bn = FrozenBN(cout, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -63,23 +89,25 @@ class Bottleneck(nn.Module):
         return F.relu(y + x)
 
 
-def _layer(cin: int, features: int, blocks: int, stride: int) -> nn.Sequential:
-    mods = [Bottleneck(cin, features, stride)]
-    mods += [Bottleneck(4 * features, features) for _ in range(blocks - 1)]
+def _layer(cin: int, features: int, blocks: int, stride: int,
+           dtype: torch.dtype) -> nn.Sequential:
+    mods = [Bottleneck(cin, features, stride, dtype)]
+    mods += [Bottleneck(4 * features, features, dtype=dtype)
+             for _ in range(blocks - 1)]
     return nn.Sequential(*mods)
 
 
 class ResNet50Backbone(nn.Module):
     """Returns (r4 1/16 1024ch, r3 1/8 512ch, r2 1/4 256ch, r1 1/2 64ch)."""
 
-    def __init__(self, in_channels: int = 3):
+    def __init__(self, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3,
-                               bias=False)
-        self.bn1 = FrozenBN(64)
-        self.layer1 = _layer(64, 64, 3, 1)
-        self.layer2 = _layer(256, 128, 4, 2)
-        self.layer3 = _layer(512, 256, 6, 2)
+        self.conv1 = _conv(in_channels, 64, 7, 2, dtype)
+        self.bn1 = FrozenBN(64, dtype)
+        self.layer1 = _layer(64, 64, 3, 1, dtype)
+        self.layer2 = _layer(256, 128, 4, 2, dtype)
+        self.layer3 = _layer(512, 256, 6, 2, dtype)
 
     def forward(self, x: torch.Tensor):
         r1 = F.relu(self.bn1(self.conv1(x)))

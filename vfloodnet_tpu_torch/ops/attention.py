@@ -19,6 +19,17 @@ The plain versions of the kernels are ``_read_occ_sweep`` (read),
 ``_read_occ_segments`` (the read's per-segment partials),
 ``combine_partials`` (combine) and ``_count_occ_sweep`` (count). A CUDA
 tensor never takes a plain version.
+
+A bank is float32 or bfloat16. On a bf16 bank every variant follows the
+contract of the JAX package's Pallas kernels (``attention_pallas.py``,
+``mm_dtype = bf16``), which the bf16 CUDA kernels also keep: q is cast to
+the bank's dtype, the scores q . k are float32 sums of the exact bf16
+products, the running max and normaliser are float32, the probabilities
+are rounded to bf16 for P V, which accumulates in float32, mem is rounded
+to the values' dtype, and the count compares float32 scores with a float32
+``log_thres``. The JAX engine's own read, ``_xla_read_occ``, keeps the
+[P, chunk] scores in bf16 instead; the tests hold these versions against
+both, at the JAX package's bf16 bars.
 """
 
 from __future__ import annotations
@@ -52,12 +63,12 @@ def _read_dense(keys, values, valid, q, thres):
     """One-shot read with the [P, N] score matrix. keys [N, dk], values
     [N, dv], valid [N] bool, q [P, dk] -> (mem [P, dv], cnt [N])."""
     scale = 1.0 / math.sqrt(keys.shape[1])
-    s = (q @ keys.T) * scale
+    s = _scores(q, keys) * scale
     s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
     m = s.max(dim=1, keepdim=True).values
     e = torch.exp(s - m)
     l = e.sum(dim=1, keepdim=True).clamp_min(1e-30)
-    mem = (e * (1.0 / l)) @ values
+    mem = _weighted_sum(e * (1.0 / l), values)
     cnt = ((e > thres * l) & valid[None, :]).sum(dim=0).to(torch.float32)
     return mem, cnt
 
@@ -69,18 +80,28 @@ def _read_chunked(keys, values, valid, q, thres, chunk):
     return _read_occ(keys, values, valid, q, thres, chunk, keys.shape[0])
 
 
+def _scores(q, k):
+    """q [P, dk] . k [N, dk] in float32 (exact products of bf16 operands)."""
+    return q.float() @ k.float().T
+
+
+def _weighted_sum(e, v):
+    """e [P, N] float32 . v [N, dv], with e rounded to v's dtype first."""
+    return e.to(v.dtype).float() @ v.float()
+
+
 def _online_step(m, l, acc, q, k_c, v_c, ok, scale):
-    s = (q @ k_c.T) * scale
+    s = _scores(q, k_c) * scale
     s = torch.where(ok[None, :], s, torch.full_like(s, NEG_INF))
     m_new = torch.maximum(m, s.max(dim=1).values)
     alpha = torch.exp(m - m_new)
     e = torch.exp(s - m_new[:, None])
     l_new = l * alpha + e.sum(dim=1)
-    return m_new, l_new, acc * alpha[:, None] + e @ v_c
+    return m_new, l_new, acc * alpha[:, None] + _weighted_sum(e, v_c)
 
 
 def _count_chunk(q, k_c, ok, log_thres, scale):
-    s = (q @ k_c.T) * scale
+    s = _scores(q, k_c) * scale
     hit = (s > log_thres[:, None]) & ok[None, :]
     return hit.sum(dim=0).to(torch.float32)
 
@@ -105,10 +126,11 @@ def _read_occ_sweep(keys, values, valid, q, chunk, occ_bound):
     keys_p, values_p = _pad_rows(keys, rows), _pad_rows(values, rows)
     valid_p = _pad_rows(valid, rows)
     scale = 1.0 / math.sqrt(dk)
+    f32 = dict(dtype=torch.float32, device=q.device)
     p_n = q.shape[0]
-    m = q.new_full((p_n,), NEG_INF)
-    l = q.new_zeros((p_n,))
-    acc = q.new_zeros((p_n, values.shape[1]))
+    m = torch.full((p_n,), NEG_INF, **f32)
+    l = torch.zeros((p_n,), **f32)
+    acc = torch.zeros((p_n, values.shape[1]), **f32)
     for start in range(0, n_visit, c):
         m, l, acc = _online_step(m, l, acc, q, keys_p[start:start + c],
                                  values_p[start:start + c],
@@ -123,7 +145,7 @@ def _count_occ_sweep(keys, valid, q, log_thres, chunk, occ_bound):
     n, dk = keys.shape
     n_visit = min(visited_slots(n, chunk, occ_bound), n)
     scale = 1.0 / math.sqrt(dk)
-    cnt = q.new_zeros((n,))
+    cnt = torch.zeros((n,), dtype=torch.float32, device=q.device)
     c = min(chunk, n)
     for start in range(0, n_visit, c):
         stop = min(start + c, n_visit)
@@ -160,10 +182,11 @@ def _read_occ_segments(keys, values, valid, q, chunk, occ_bound, splits,
     keys_p, values_p = _pad_rows(keys, rows), _pad_rows(values, rows)
     valid_p = _pad_rows(valid, rows)
     scale = 1.0 / math.sqrt(dk)
+    f32 = dict(dtype=torch.float32, device=q.device)
     p_n = q.shape[0]
-    m_s = q.new_full((splits, p_n), -math.inf)
-    l_s = q.new_zeros((splits, p_n))
-    acc_s = q.new_zeros((splits, p_n, values.shape[1]))
+    m_s = torch.full((splits, p_n), -math.inf, **f32)
+    l_s = torch.zeros((splits, p_n), **f32)
+    acc_s = torch.zeros((splits, p_n, values.shape[1]), **f32)
     c = min(chunk, n)
     for s in range(splits):
         stop = min((s + 1) * seg, n_visit)
@@ -217,14 +240,20 @@ def bank_attention_read(keys: torch.Tensor, values: torch.Tensor,
       bank's device, which the kernels read without a host sync). With a
       bound, only ``ceil(occ_bound / OCC_CHUNK)`` chunks are visited.
 
-    Returns: mem [obj, P, dv], cnt [obj, N] float32.
+    The bank is float32 or bfloat16 (keys and values of one dtype); on a
+    bf16 bank q is cast to bf16, as the Pallas kernels cast it.
+
+    Returns: mem [obj, P, dv] in the values' dtype, cnt [obj, N] float32.
     """
+    if keys.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16)
     if keys.is_cuda:
-        return _kernel_read(keys, values, valid, q, thres, occ_bound)
+        return _kernel_read(keys, values, valid, q.contiguous(), thres,
+                            occ_bound)
     bound = None if occ_bound is None else int(occ_bound)
     outs = [read_plain(keys[o], values[o], valid[o], q, thres, chunk, bound)
             for o in range(keys.shape[0])]
-    return (torch.stack([o[0] for o in outs]),
+    return (torch.stack([o[0] for o in outs]).to(values.dtype),
             torch.stack([o[1] for o in outs]))
 
 
@@ -238,4 +267,4 @@ def _kernel_read(keys, values, valid, q, thres, occ_bound):
         q, keys, values, valid, occ_bound, OCC_CHUNK, thres)
     cnt = bank_read_cuda.bank_count(q, keys, valid, occ_bound, log_thres,
                                     OCC_CHUNK)
-    return mem, cnt
+    return mem.to(values.dtype), cnt

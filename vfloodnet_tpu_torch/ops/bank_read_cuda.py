@@ -1,19 +1,22 @@
-"""Build, load and launch the bank read, combine and count kernels
-(``csrc/bank_read.cu``).
+"""Build, load and launch the bank read, combine and count kernels:
+float32 (``csrc/bank_read.cu``: read, combine, count) and bf16
+(``csrc/bank_read_bf16.cu``: read, count; its partials go through the
+float32 combine).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
+Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``, at the first launch in a process (never
 at import: the CPU tests import this module where there is no ``nvcc``).
-The library goes to ``vfloodnet_tpu_torch/_build/``, named by the hash of
-every source and header under ``csrc/`` and of the flags, so an edited file
-is rebuilt and an unchanged tree is reused. A build writes to a private
-temporary name and renames it into place, so there is no lock file to go
-stale.
+The two ``nvcc`` runs start together. The libraries go to
+``vfloodnet_tpu_torch/_build/``, named by the hash of every source and
+header under ``csrc/`` and of the flags, so an edited file is rebuilt and
+an unchanged tree is reused. A build writes to a private temporary name
+and renames it into place, so there is no lock file to go stale.
 
-Each wrapper checks its tensors, allocates its outputs (and the read's
-per-segment partials) with ``torch.empty``, launches on PyTorch's current
-stream, raises if the launch reports an error, and adds one to its entry
-in :data:`launches`.
+The read and the count dispatch on the bank's dtype (float32 or bf16); any
+other dtype raises. Each wrapper checks its tensors, allocates its outputs
+(and the read's per-segment partials) with ``torch.empty``, launches on
+PyTorch's current stream, raises if the launch reports an error, and adds
+one to its kernel's entry in :data:`launches`.
 """
 
 from __future__ import annotations
@@ -26,13 +29,14 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "bank_read.cu")
+# library name -> its source under CSRC
+SOURCES = {"bank_read": "bank_read.cu", "bank_read_bf16": "bank_read_bf16.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,11 +48,12 @@ MAX_SPLITS = 8
 
 # Launch counts of the kernels in this process (reset with
 # reset_launches()); a run reads them to show which kernels it went through.
-launches = {"bank_read": 0, "bank_read_combine": 0, "bank_count": 0}
+launches = {"bank_read": 0, "bank_read_combine": 0, "bank_count": 0,
+            "bank_read_bf16": 0, "bank_count_bf16": 0}
 
-_lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None
-build_log: Optional[str] = None   # ptxas's report of the last compile
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Optional[float] = None   # wall time of the last build
+build_log: Dict[str, str] = {}   # library name -> ptxas's report
 
 
 def reset_launches() -> None:
@@ -74,49 +79,63 @@ def _csrc_files() -> list:
                   for f in glob.glob(os.path.join(CSRC, pat)))
 
 
-def library_path() -> str:
+def library_path(name: str = "bank_read") -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _csrc_files():
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"bank_read_{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels unless a library of the current sources exists;
-    returns its path. Sets :data:`build_seconds` when it compiled, and
-    :data:`build_log` (registers, shared memory and spills of each kernel,
-    from ``-Xptxas -v``, kept beside the library)."""
-    global build_seconds, build_log
-    path = library_path()
-    log_path = path[:-3] + ".log"
-    if os.path.exists(path):
-        if build_log is None and os.path.exists(log_path):
-            with open(log_path) as f:
-                build_log = f.read()
-        return path
+def build() -> Dict[str, str]:
+    """Compile every library whose current sources have none yet, all
+    ``nvcc`` runs at once; returns {library name: path}. Sets
+    :data:`build_seconds` when it compiled, and :data:`build_log`
+    (registers, shared memory and spills of each kernel, from
+    ``-Xptxas -v``, kept beside each library)."""
+    global build_seconds
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
+    for name, p in paths.items():
+        if name not in todo and name not in build_log \
+                and os.path.exists(p[:-3] + ".log"):
+            with open(p[:-3] + ".log") as f:
+                build_log[name] = f.read()
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
-        f.write(build_log)
-    os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
-    os.replace(tmp, path)
+    procs = {}
+    for name, p in todo.items():
+        tmp = f"{p}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC, SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outputs = {name: proc.communicate(timeout=600)[0]
+               for name, (_, proc) in procs.items()}
+    failed = {name: out for name, out in outputs.items()
+              if procs[name][1].returncode != 0}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({procs[name][1].returncode}):\n{out}"
+            for name, out in failed.items()))
+    for name, (tmp, _) in procs.items():
+        log_path = todo[name][:-3] + ".log"
+        build_log[name] = outputs[name]
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+            f.write(outputs[name])
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
+        os.replace(tmp, todo[name])
     build_seconds = time.perf_counter() - t0
-    return path
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def _load(name: str = "bank_read") -> ctypes.CDLL:
+    if not _libs:
+        paths = build()
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib = ctypes.CDLL(paths["bank_read"])
         lib.vft_bank_read.argtypes = [p, p, p, p, p, p, p, p,
                                       i, i, i, i, i, f, p]
         lib.vft_bank_read.restype = i
@@ -128,14 +147,22 @@ def _load() -> ctypes.CDLL:
         lib.vft_bank_dims.restype = i
         lib.vft_error_string.argtypes = [i]
         lib.vft_error_string.restype = ctypes.c_char_p
-        dims = [i() for _ in range(4)]
-        lib.vft_bank_dims(*map(ctypes.byref, dims))
-        got = tuple(d.value for d in dims)
-        if got != (DK, DV, READ_TILE, QUERY_TILE):
-            raise RuntimeError(f"kernel dims {got} != "
-                               f"{(DK, DV, READ_TILE, QUERY_TILE)}")
-        _lib = lib
-    return _lib
+        lib16 = ctypes.CDLL(paths["bank_read_bf16"])
+        lib16.vft_bank_read_bf16.argtypes = lib.vft_bank_read.argtypes
+        lib16.vft_bank_read_bf16.restype = i
+        lib16.vft_bank_count_bf16.argtypes = lib.vft_bank_count.argtypes
+        lib16.vft_bank_count_bf16.restype = i
+        lib16.vft_bf16_dims.argtypes = [ctypes.POINTER(i)] * 4
+        lib16.vft_bf16_dims.restype = i
+        for dims_fn in (lib.vft_bank_dims, lib16.vft_bf16_dims):
+            dims = [i() for _ in range(4)]
+            dims_fn(*map(ctypes.byref, dims))
+            got = tuple(d.value for d in dims)
+            if got != (DK, DV, READ_TILE, QUERY_TILE):
+                raise RuntimeError(f"kernel dims {got} != "
+                                   f"{(DK, DV, READ_TILE, QUERY_TILE)}")
+        _libs.update(bank_read=lib, bank_read_bf16=lib16)
+    return _libs[name]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -148,8 +175,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        msg = _lib.vft_error_string(err).decode()
+        msg = _libs["bank_read"].vft_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _bank_dtype(keys: torch.Tensor) -> torch.dtype:
+    if keys.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the bank kernels take float32 or bfloat16 "
+                         f"banks, got {keys.dtype}")
+    return keys.dtype
 
 
 def _occ_ptr(occ_bound, device) -> Optional[int]:
@@ -179,9 +213,11 @@ def bank_read_partials(q: torch.Tensor, keys: torch.Tensor,
                        occ_bound: Optional[torch.Tensor], chunk: int,
                        splits: int):
     """Read kernel over ``splits`` segments of the visited bank: q [P, dk],
-    keys [obj, N, dk], values [obj, N, dv], valid [obj, N] bool, occ_bound
-    [1] int32 on the device or None -> (m_s [obj, S, P], l_s [obj, S, P],
-    acc_s [obj, S, P, dv]), float32; acc_s is not normalised."""
+    keys [obj, N, dk], values [obj, N, dv] of one dtype (float32: the
+    3xTF32 ``read_kernel``; bfloat16: ``read_bf16_kernel``), valid
+    [obj, N] bool, occ_bound [1] int32 on the device or None -> (m_s
+    [obj, S, P], l_s [obj, S, P], acc_s [obj, S, P, dv]), float32; acc_s is
+    not normalised."""
     obj_n, n, _ = keys.shape
     p = q.shape[0]
     dev = keys.device
@@ -189,23 +225,25 @@ def bank_read_partials(q: torch.Tensor, keys: torch.Tensor,
         raise ValueError("bank_read needs CUDA tensors with P, N > 0")
     if not 1 <= splits <= 65535:
         raise ValueError(f"splits must be in 1..65535, got {splits}")
-    _check(q, "q", torch.float32, (p, DK), dev)
-    _check(keys, "keys", torch.float32, (obj_n, n, DK), dev)
-    _check(values, "values", torch.float32, (obj_n, n, DV), dev)
+    dt = _bank_dtype(keys)
+    _check(q, "q", dt, (p, DK), dev)
+    _check(keys, "keys", dt, (obj_n, n, DK), dev)
+    _check(values, "values", dt, (obj_n, n, DV), dev)
     _check(valid, "valid", torch.bool, (obj_n, n), dev)
-    lib = _load()
+    name = "bank_read" if dt == torch.float32 else "bank_read_bf16"
+    launch = getattr(_load(name), "vft_" + name)
     m_s = torch.empty((obj_n, splits, p), dtype=torch.float32, device=dev)
     l_s = torch.empty((obj_n, splits, p), dtype=torch.float32, device=dev)
     acc_s = torch.empty((obj_n, splits, p, DV), dtype=torch.float32,
                         device=dev)
     with torch.cuda.device(dev):
-        err = lib.vft_bank_read(
+        err = launch(
             q.data_ptr(), keys.data_ptr(), values.data_ptr(),
             valid.data_ptr(), _occ_ptr(occ_bound, dev), m_s.data_ptr(),
             l_s.data_ptr(), acc_s.data_ptr(), p, n, obj_n, chunk, splits,
             1.0 / math.sqrt(DK), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "bank_read")
-    launches["bank_read"] += 1
+    _raise_on(err, name)
+    launches[name] += 1
     return m_s, l_s, acc_s
 
 
@@ -240,7 +278,7 @@ def bank_read(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
               chunk: int, thres: float = 1e-3):
     """Read over :func:`default_splits` segments for this card, then
     combine: (mem [obj, P, dv], m [obj, P], l [obj, P], log_thres
-    [obj, P]), all float32."""
+    [obj, P]), all float32 whatever the bank's dtype."""
     sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
     parts = bank_read_partials(q, keys, values, valid, occ_bound, chunk,
                                default_splits(keys.shape[0], q.shape[0], sms))
@@ -250,27 +288,31 @@ def bank_read(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
 def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
                occ_bound: Optional[torch.Tensor], log_thres: torch.Tensor,
                chunk: int) -> torch.Tensor:
-    """Count kernel: q [P, dk], keys [obj, N, dk], valid [obj, N] bool,
-    occ_bound [1] int32 or None, log_thres [obj, P] float32 -> cnt
+    """Count kernel: q [P, dk] and keys [obj, N, dk] of one dtype (float32:
+    ``count_kernel``; bfloat16: ``count_bf16_kernel``), valid [obj, N]
+    bool, occ_bound [1] int32 or None, log_thres [obj, P] float32 -> cnt
     [obj, N] float32."""
     obj_n, n, _ = keys.shape
     p = q.shape[0]
     dev = keys.device
     if dev.type != "cuda" or p == 0 or n == 0:
         raise ValueError("bank_count needs CUDA tensors with P, N > 0")
-    _check(q, "q", torch.float32, (p, DK), dev)
-    _check(keys, "keys", torch.float32, (obj_n, n, DK), dev)
+    dt = _bank_dtype(keys)
+    _check(q, "q", dt, (p, DK), dev)
+    _check(keys, "keys", dt, (obj_n, n, DK), dev)
     _check(valid, "valid", torch.bool, (obj_n, n), dev)
     log_thres = log_thres.contiguous()
     _check(log_thres, "log_thres", torch.float32, (obj_n, p), dev)
-    lib = _load()
+    name = "bank_count" if dt == torch.float32 else "bank_count_bf16"
+    launch = getattr(_load("bank_read" if dt == torch.float32
+                           else "bank_read_bf16"), "vft_" + name)
     cnt = torch.empty((obj_n, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.vft_bank_count(
+        err = launch(
             q.data_ptr(), keys.data_ptr(), valid.data_ptr(),
             _occ_ptr(occ_bound, dev), log_thres.data_ptr(), cnt.data_ptr(),
             p, n, obj_n, chunk, 1.0 / math.sqrt(DK),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "bank_count")
-    launches["bank_count"] += 1
+    _raise_on(err, name)
+    launches[name] += 1
     return cnt

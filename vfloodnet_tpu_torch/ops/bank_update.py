@@ -17,6 +17,11 @@ The bank tensors are updated in place (the JAX package returns new arrays;
 here that would copy the 0.5 GB bank every frame). Victims are taken in
 ascending LFU order with ties to the lower slot, the order of the JAX
 package's exact ``top_k`` branch.
+
+A bf16 bank is matched and merged as the JAX package does it: the
+correlation is a bf16 product scaled in bf16 by float32 inverse slot norms,
+and the merge gathers the matched rows as float32, runs the mean and the
+EMA in float32 and casts on the scatter.
 """
 
 from __future__ import annotations
@@ -48,17 +53,20 @@ def _best_match(keys, valid, normed_new, occ_bound: int):
     chunk = OCC_CHUNK if n > OCC_CHUNK else n
     n_iter = min(max(-(-occ_bound // chunk), 1), -(-n // chunk))
     m = normed_new.shape[0]
-    best_corr = normed_new.new_full((m,), -2.0)
+    best_corr = torch.full((m,), -2.0, dtype=torch.float32,
+                           device=keys.device)
     best_idx = torch.zeros((m,), dtype=torch.int64, device=keys.device)
     for i in range(n_iter):
         k_c = keys[i * chunk:(i + 1) * chunk]
         ok = valid[i * chunk:(i + 1) * chunk]
-        mag = torch.linalg.vector_norm(k_c, dim=1)
+        mag = torch.linalg.vector_norm(k_c.float(), dim=1)
         inv = torch.where(ok, 1.0 / mag.clamp_min(1e-12),
                           torch.zeros_like(mag))
-        corr = (normed_new @ k_c.T) * inv[None, :]
+        corr = (normed_new.to(keys.dtype) @ k_c.T) * inv[None, :].to(
+            keys.dtype)
         corr = torch.where(ok[None, :], corr, torch.full_like(corr, -2.0))
         local_val, local_idx = corr.max(dim=1)
+        local_val = local_val.float()
         better = local_val > best_corr
         best_idx = torch.where(better, local_idx + i * chunk, best_idx)
         best_corr = torch.maximum(best_corr, local_val)
@@ -99,11 +107,13 @@ def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
         count = torch.bincount(group, minlength=slots.numel())[:, None]
         r = update_rate
         for bank, normed in ((keys, normed_new_k), (values, normed_new_v)):
-            mean = normed.new_zeros((slots.numel(), normed.shape[1]))
-            mean.index_add_(0, group, normed[merge_mask])
+            mean = torch.zeros((slots.numel(), normed.shape[1]),
+                               dtype=torch.float32, device=normed.device)
+            mean.index_add_(0, group, normed[merge_mask].float())
             mean = mean / count.clamp_min(1)
-            old_dir, old_mag = _safe_normalize(bank[slots])
-            bank[slots] = old_mag * ((1.0 - r) * old_dir + r * mean)
+            old_dir, old_mag = _safe_normalize(bank[slots].float())
+            bank[slots] = (old_mag * ((1.0 - r) * old_dir + r * mean)).to(
+                bank.dtype)
         protected[slots] = True
 
     # Append at the prefix tail; LFU victims once the bank is full.

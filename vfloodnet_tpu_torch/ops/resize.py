@@ -2,7 +2,9 @@
 
 - ``bicubic``: torch's own kernel (Keys a=-0.75, half-pixel centres,
   replicated edges, no antialias), which is the kernel the JAX package
-  rebuilt as dense matrices.
+  rebuilt as dense matrices. A bf16 input is resized as the JAX package
+  resizes it: separably, with the dense [out, in] tap matrices rounded to
+  bf16, float32 accumulation, and each pass's result stored in bf16.
 - ``nearest``: JAX's half-pixel nearest, ``src = floor((i + 0.5) * in / out)``
   computed in float32 as ``jax.image.resize`` does. Used by the device
   largest-CC cleanup.
@@ -17,6 +19,7 @@ they are not used.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -40,6 +43,50 @@ def _nearest_index(n_in: int, n_out: int, method: str) -> np.ndarray:
     return np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
 
 
+def _cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense [out, in] float32 matrix of torch's bicubic resize (the JAX
+    package's ``_torch_cubic_matrix``)."""
+    a = np.float32(-0.75)
+    src = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) \
+        * np.float32(in_size / out_size) - np.float32(0.5)
+    i0 = np.floor(src)
+    t = src - i0
+
+    def kernel(x):
+        x = np.abs(x)
+        near = ((a + 2) * x - (a + 3)) * x * x + 1
+        far = a * (((x - 5) * x + 8) * x - 4)
+        return np.where(x <= 1, near, np.where(x < 2, far, 0)).astype(
+            np.float32)
+
+    m = np.zeros((out_size, in_size), np.float32)
+    rows = np.arange(out_size)
+    for k in (-1, 0, 1, 2):
+        idx = np.clip(i0 + k, 0, in_size - 1).astype(np.int64)
+        np.add.at(m, (rows, idx), kernel(t - k))
+    return m
+
+
+@functools.lru_cache(maxsize=16)
+def _cubic_taps(in_size: int, out_size: int, device: torch.device):
+    """The [in, out] transpose of :func:`_cubic_matrix` with its taps
+    rounded to bf16, held as float32 on ``device``: built and uploaded once
+    per size pair (a step resizes with the same four), not every frame."""
+    m = torch.from_numpy(_cubic_matrix(in_size, out_size)).to(torch.bfloat16)
+    return m.float().T.contiguous().to(device)
+
+
+def _bicubic_bf16(x: torch.Tensor, out_hw, h_ax: int, w_ax: int):
+    """Separable bicubic of a bf16 tensor: the H pass, then the W pass."""
+    for ax, n_out in ((h_ax, out_hw[0]), (w_ax, out_hw[1])):
+        if x.shape[ax] == n_out:
+            continue
+        taps = _cubic_taps(x.shape[ax], n_out, x.device)
+        y = x.movedim(ax, -1).float() @ taps
+        x = y.to(torch.bfloat16).movedim(-1, ax)
+    return x
+
+
 def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
            spatial_axes: Tuple[int, int] = (-3, -2)) -> torch.Tensor:
     """Resize the two spatial axes of ``x`` (default NHWC) to ``out_hw``.
@@ -56,6 +103,8 @@ def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
         raise ValueError(f"unknown resize method {method!r}")
     if tuple(x.shape[a] for a in (h_ax, w_ax)) == tuple(out_hw):
         return x
+    if x.dtype == torch.bfloat16:
+        return _bicubic_bf16(x, out_hw, h_ax, w_ax)
     # move the spatial axes last, fold the rest into the channel axis
     y = x.movedim((h_ax, w_ax), (-2, -1))
     lead = y.shape[:-2]

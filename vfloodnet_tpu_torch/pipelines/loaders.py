@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Optional
 
@@ -20,25 +21,30 @@ def default_checkpoint(kind: str = "video") -> str:
     return os.path.join(_RECORDS, kind, "best.npz")
 
 
-def load_afb_urr(model_path: Optional[str] = None,
-                 device="cuda") -> AFBURR:
-    """AFB-URR with weights from a flat ``.npz`` checkpoint of the JAX
-    package (default: the bundled trained one), converted by the weight
-    bridge and moved to ``device``, in eval mode."""
+def load_afb_urr(model_path: Optional[str] = None, device="cuda",
+                 dtype: torch.dtype = torch.float32) -> AFBURR:
+    """AFB-URR computing in ``dtype`` with weights from a flat ``.npz``
+    checkpoint of the JAX package (default: the bundled trained one),
+    converted by the weight bridge and moved to ``device``, in eval mode.
+    The weights stay float32 masters; the engine casts them once
+    (:func:`cast_floating_params`)."""
     model_path = model_path or default_checkpoint("video")
     if not model_path.endswith(".npz"):
         raise ValueError(f"expected a flat .npz checkpoint, got {model_path}")
     device = resolve_device(device)
-    model = AFBURR()
+    model = AFBURR(dtype=dtype)
     model.load_state_dict(convert_afb_urr_variables(load_flat_npz(model_path)))
     return model.to(device).eval()
 
 
 def cast_floating_params(model: torch.nn.Module,
                          dtype: torch.dtype) -> torch.nn.Module:
-    """Cast conv kernels (floating parameters with ndim >= 2) to ``dtype``
-    in place, keeping biases and frozen-BN buffers float32, as the JAX
-    package's helper does for a reduced-precision engine."""
+    """A copy of ``model`` with its conv kernels (floating parameters with
+    ndim >= 2) cast to ``dtype`` and its biases and frozen-BN buffers kept
+    float32, as the JAX package's helper returns a cast copy of the
+    variables for a reduced-precision engine; ``model`` is left as it
+    was."""
+    model = copy.deepcopy(model)
     for param in model.parameters():
         if param.ndim >= 2 and param.is_floating_point():
             param.data = param.data.to(dtype)

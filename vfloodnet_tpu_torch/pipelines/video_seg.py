@@ -28,6 +28,7 @@ from .. import ops
 from ..core import resolve_device
 from ..memory import FeatureBank, FeatureBankState
 from ..models import AFBURR
+from .loaders import cast_floating_params
 
 
 def to_onehot(mask: np.ndarray, obj_n: int) -> np.ndarray:
@@ -95,21 +96,45 @@ def host_largest_cc(label: np.ndarray) -> np.ndarray:
     return (lab == sizes.argmax()).astype(np.uint8)
 
 
+def resolve_postprocess(postprocess, device) -> str:
+    """Normalise the largest-CC postprocess mode: True is 'device', False
+    'none', and 'auto' picks 'device' when ``device`` is a CUDA device and
+    the host has fewer than 4 CPUs to run the cleanup, else 'host' (the
+    JAX package's rule, with CUDA for its accelerator)."""
+    if postprocess is True:
+        return "device"
+    if postprocess is False:
+        return "none"
+    if postprocess == "auto":
+        on_accel = torch.device(device).type == "cuda"
+        few_cpus = (os.cpu_count() or 1) < 4
+        return "device" if (on_accel and few_cpus) else "host"
+    return postprocess
+
+
 class VideoSegEngine:
     """Per-frame propagation engine.
 
+    A model that computes in bf16 (``AFBURR(dtype=torch.bfloat16)``) gets
+    its weights cast once here (:func:`cast_floating_params`, on a copy);
+    the frame is then prepared in bf16, and the first frame's bootstrap
+    stays float32, as in the JAX engine.
+
     ``postprocess``: largest-CC cleanup — 'device' (on the label before it
     leaves the device), 'host' (the runner applies :func:`host_largest_cc`
-    to the fetched label), 'none'; 'auto' is 'device'.
+    to the fetched label), 'none'; 'auto' as :func:`resolve_postprocess`
+    decides.
     """
 
     def __init__(self, model: AFBURR, fb: FeatureBank, downsample: int = 480,
                  postprocess="auto", cc_scale: int = 16):
+        if model.dtype != torch.float32:
+            model = cast_floating_params(model, model.dtype)
         self.model = model.eval()
         self.fb = fb
         self.device = next(model.parameters()).device
         self.downsample = downsample
-        self.postprocess = "device" if postprocess == "auto" else postprocess
+        self.postprocess = resolve_postprocess(postprocess, self.device)
         if self.postprocess not in ("device", "host", "none"):
             raise ValueError(f"unknown postprocess {postprocess!r}")
         self.cc_scale = int(cc_scale)
@@ -153,7 +178,8 @@ class VideoSegEngine:
         frame_u8 = self.upload(frame)
         full_hw = tuple(frame_u8.shape[:2])
         small_hw = ops.short_side_size(*full_hw, self.downsample)
-        frame_small = ops.resize(frame_u8.float() / 255.0, small_hw,
+        cd = self.model.dtype   # the prep runs in the compute dtype
+        frame_small = ops.resize(frame_u8.to(cd) / 255.0, small_hw,
                                  "bicubic", spatial_axes=(0, 1))
         score, cnt = self.model.segment(frame_small[None], state.keys,
                                         state.values, state.valid,
@@ -165,7 +191,7 @@ class VideoSegEngine:
 
         if self.fb.obj_n == 2:
             # argmax of {bg, fg} is sign(fg - bg), and bicubic is linear
-            diff = pred[1] - pred[0]
+            diff = (pred[1] - pred[0]).to(cd)
             up = ops.resize(diff, full_hw, "bicubic", spatial_axes=(-2, -1))
             label_full = (up > 0).to(torch.uint8)
             label_small = (diff > 0).to(torch.uint8)
@@ -276,7 +302,9 @@ def _args():
                         help="Short-side operating resolution.")
     parser.add_argument("--postprocess", type=str, default="auto",
                         choices=["auto", "host", "device", "none"],
-                        help="Largest-CC cleanup (auto = device).")
+                        help="Largest-CC cleanup (auto = device on a CUDA "
+                             "device when the host has fewer than 4 CPUs, "
+                             "else host).")
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="Bank checkpoints are not ported yet; must be 0.")
     parser.add_argument("--memorize-every", type=int, default=1,
