@@ -13,7 +13,7 @@ Phases, each printing one line with its elapsed seconds:
    ``vfloodnet_tpu_torch/_build/``; each kernel's registers and spills
    (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump -sass``:
    the float32 read and count must hold ``HMMA`` in TF32, the bf16 ones
-   ``HMMA.16816.F32.BF16``).
+   warpgroup ``HGMMA`` in bf16 and no ``HMMA``, and spill nothing).
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (P = 1620 query pixels, dk = 128, dv = 512, N = 98,304 slots,
    2 objects) for a full bank, a bound of 20,000 with valid slots past it
@@ -35,11 +35,15 @@ Phases, each printing one line with its elapsed seconds:
 6. bf16 kernels: the bf16 read (with the float32 combine) and count
    against their plain versions on a bf16 bank at the same shapes (full,
    a bound of 20,000 with valid slots past it, a bound inside the last of
-   5 segments, all invalid at occupancy 0), mem within rtol 1e-2 / atol
-   2e-3 and counts within 1; their times, the plain versions', one bf16
-   ``scaled_dot_product_attention`` call with the validity mask (the
+   5 segments, all invalid at occupancy 0, and a bound of 1,700: one
+   8,192-slot chunk, the main path's occupancy), mem within rtol 1e-2 /
+   atol 2e-3 (in the one-chunk case, on an element where the plain
+   version is itself off the read with float32 probabilities by more than
+   that, of that read), m and l as in phase 3, and counts within 1; their
+   times, the plain versions', one
+   bf16 ``scaled_dot_product_attention`` call with the validity mask (the
    backend it took is named) and the cuBLAS bf16 ``q @ keys^T`` of the
-   count's scores.
+   count's scores, each at the full bank and at the one visited chunk.
 7. bf16 main path: an engine of ``AFBURR(dtype=torch.bfloat16)`` built
    from the weights of phase 4's model (which must stay float32) and a
    bf16 bank segments the eight frames; the bf16 read and count and the
@@ -166,8 +170,9 @@ def _ptxas_report(log):
 
 
 def _sass_mma(lib_path):
-    """Per kernel: the tensor-core instructions (``HMMA``) in the
-    library's SASS and their forms, from ``cuobjdump -sass``."""
+    """Per kernel: the tensor-core instructions in the library's SASS
+    (``HMMA``, of one warp, and ``HGMMA``, of a warpgroup), their counts
+    and forms, from ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=120, check=True).stdout
@@ -176,14 +181,13 @@ def _sass_mma(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _kernel_name(m.group(1))
-            out[name] = {"hmma": 0, "forms": set()}
+            out[name] = {"hmma": 0, "hgmma": 0, "forms": set()}
             continue
-        m = re.search(r"\b(HMMA\.\S+)", line)
+        m = re.search(r"\b((H|HG)MMA\.\S+)", line)
         if m and name is not None:
-            out[name]["hmma"] += 1
+            out[name]["hmma" if m.group(2) == "H" else "hgmma"] += 1
             out[name]["forms"].add(m.group(1))
-    return {k: {"hmma": v["hmma"], "forms": sorted(v["forms"])}
-            for k, v in out.items()}
+    return {k: {**v, "forms": sorted(v["forms"])} for k, v in out.items()}
 
 
 def build_phase():
@@ -203,10 +207,14 @@ def build_phase():
               all("TF32" in f for f in sass[name]["forms"]),
               f"{name} runs on the tensor cores in TF32")
     for name in ("read_bf16_kernel", "count_bf16_kernel"):
-        check(sass.get(name, {}).get("hmma", 0) > 0 and
-              all(f.startswith("HMMA.16816.F32.BF16")
+        check(sass.get(name, {}).get("hgmma", 0) > 0 and
+              sass[name]["hmma"] == 0 and
+              all(f.startswith("HGMMA.") and ".BF16" in f
                   for f in sass[name]["forms"]),
-              f"{name} runs on the tensor cores as HMMA.16816.F32.BF16")
+              f"{name} runs on the tensor cores as bf16 HGMMA only")
+        check(ptxas.get(name, {}).get("spill_store_bytes") == 0 and
+              ptxas[name].get("spill_load_bytes") == 0,
+              f"{name} spills no registers")
     return {name: {**ptxas.get(name, {}), "sass_mma": sass.get(name)}
             for name in KERNELS}
 
@@ -405,6 +413,74 @@ def _sdpa_bf16(q, keys, values, valid):
     raise RuntimeError("no SDPA backend takes the bf16 read")
 
 
+def _exact_mem(q, keys, values, valid, n_visit):
+    """The read of a bf16 bank with float32 probabilities: one softmax over
+    the first ``n_visit`` (<= N) slots per object, masked slots at -1e30."""
+    out = []
+    for o in range(keys.shape[0]):
+        s = (q.float() @ keys[o, :n_visit].float().T) / math.sqrt(DK)
+        s = torch.where(valid[o, :n_visit][None], s,
+                        torch.full_like(s, attention.NEG_INF))
+        out.append(torch.softmax(s, dim=1) @ values[o, :n_visit].float())
+    return torch.stack(out)
+
+
+def _time_bf16(q, keys, values, valid, occ_t, occ, splits, log_thres):
+    """Times of the bf16 read (with the combine) and count on the visited
+    slots of bound ``occ``, of their plain versions and yardsticks, and
+    their bounds: {kernel row name: (ms, plain ms, library ms, bound ms,
+    bound_by, extra)}."""
+    chunk = attention.OCC_CHUNK
+    n_vis = attention.visited_slots(N, chunk, occ)
+    read_ms = time_ms(lambda: bank_read_cuda.bank_read(
+        q, keys, values, valid, occ_t, chunk, THRES))
+    read_kernel_ms = time_ms(lambda: bank_read_cuda.bank_read_partials(
+        q, keys, values, valid, occ_t, chunk, splits))
+    count_ms = time_ms(lambda: bank_read_cuda.bank_count(
+        q, keys, valid, occ_t, log_thres, chunk))
+    plain_read_ms = time_ms(lambda: [attention._read_occ_sweep(
+        keys[o], values[o], valid[o], q, chunk, occ)
+        for o in range(OBJ)], reps=5)
+    plain_count_ms = time_ms(lambda: [attention._count_occ_sweep(
+        keys[o], valid[o], q, log_thres[o], chunk, occ)
+        for o in range(OBJ)], reps=5)
+    # the yardsticks see only the visited slots
+    kv, vv, okv = keys[:, :n_vis], values[:, :n_vis], valid[:, :n_vis]
+    sdpa, backend = _sdpa_bf16(q, kv, vv, okv)
+    sdpa_ms = time_ms(sdpa, reps=5)
+    # a reference, not the same function: cuBLAS bf16 q @ keys^T, the
+    # scores the count compares, written out in full
+    scores_ms = time_ms(lambda: torch.matmul(q, kv.transpose(1, 2)), reps=5)
+    read_flop = OBJ * 2 * P * n_vis * (DK + DV)
+    read_bytes = 2 * (P * DK + OBJ * n_vis * (DK + DV)) \
+        + 4 * OBJ * P * (DV + 3) + OBJ * n_vis
+    count_flop = OBJ * 2 * P * n_vis * DK
+    count_bytes = 2 * (P * DK + OBJ * n_vis * DK) \
+        + 4 * (OBJ * P + OBJ * N) + OBJ * n_vis
+
+    def bound(flop, n_bytes):
+        t_ops, t_bytes = flop / BF16_PEAK, n_bytes / HBM_RATE
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops > t_bytes else "bytes")
+
+    timing = dict(
+        bank_read_bf16=(read_ms, plain_read_ms, sdpa_ms,
+                        *bound(read_flop, read_bytes),
+                        {"read_kernel_ms": read_kernel_ms,
+                         "splits": splits, "sdpa_backend": backend}),
+        bank_count_bf16=(count_ms, plain_count_ms, None,
+                         *bound(count_flop, count_bytes),
+                         {"reference_cublas_bf16_scores_ms": scores_ms}))
+    log("kernels_bf16", f"occ {occ} ({n_vis} slots visited): read + combine "
+        f"{read_ms:.3f} ms (read kernel {read_kernel_ms:.3f}, S {splits}; "
+        f"plain {plain_read_ms:.3f}, sdpa {backend} {sdpa_ms:.3f}, bound "
+        f"{timing['bank_read_bf16'][3]:.3f}); count {count_ms:.3f} ms "
+        f"(plain {plain_count_ms:.3f}, bound "
+        f"{timing['bank_count_bf16'][3]:.3f}, cuBLAS bf16 scores "
+        f"{scores_ms:.3f})")
+    return timing
+
+
 def kernel_phase_bf16():
     """The bf16 read (with the float32 combine) and count against their
     plain versions on a bf16 bank at the main path's shapes."""
@@ -420,6 +496,8 @@ def kernel_phase_bf16():
         "occ20000": (rand_valid, 20000, None),
         "occ9000_s5": (rand_valid, 9000, 5),
         "all_invalid_occ0": (none_valid, 0, None),
+        # the main path's occupancy (~1.6-2.0k slots): one chunk visited
+        "one_chunk": (rand_valid, 1700, None),
     }
     chunk = attention.OCC_CHUNK
     errs, timing = {}, {}
@@ -449,8 +527,27 @@ def kernel_phase_bf16():
             f"differing {int((cnt_diff > 0).sum())} (max |diff| "
             f"{cnt_diff.max().item()}), cnt total {cnt_k.sum().item():.0f}, "
             f"cnt beyond bound {beyond}")
-        check(torch.allclose(mem_k, mem_p, **MEM_TOL_BF16),
-              f"bf16 {name}: mem within rtol 1e-2 atol 2e-3")
+        # mem is held to the plain version. In the one-chunk case the plain
+        # version rounds its bf16 probabilities against the max of the whole
+        # chunk and lies, on an element of this bank, farther than the bar
+        # from the read with float32 probabilities (PERF.md section 6);
+        # there, on such elements only, the kernel is held to that read
+        near = torch.isclose(mem_k, mem_p, **MEM_TOL_BF16)
+        if name == "one_chunk":
+            exact = _exact_mem(q, keys, values, valid, n_visit)
+            plain_off = ~torch.isclose(mem_p, exact, **MEM_TOL_BF16)
+            kernel_off = ~torch.isclose(mem_k, exact, **MEM_TOL_BF16)
+            log("kernels_bf16", f"{name}: mem elements off the plain "
+                f"version {int((~near).sum())}; plain version off the "
+                f"float32-probability read {int(plain_off.sum())}, kernel "
+                f"off it {int(kernel_off.sum())}")
+            near |= plain_off & ~kernel_off
+        check(bool(near.all()), f"bf16 {name}: mem within rtol 1e-2 atol "
+              f"2e-3")
+        check(torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-5),
+              f"bf16 {name}: m within rtol 1e-5 atol 1e-5")
+        check(torch.allclose(l_k, l_p, rtol=1e-4, atol=0),
+              f"bf16 {name}: l within rtol 1e-4")
         check(cnt_diff.max().item() <= 1.0,
               f"bf16 {name}: cnt |diff| <= 1 per slot")
         check(beyond == 0, f"bf16 {name}: no counts beyond the bound")
@@ -466,56 +563,11 @@ def kernel_phase_bf16():
             unbounded = _plain(q, keys, values, valid, N)[0]
             check(not torch.allclose(mem_k, unbounded, **MEM_TOL_BF16),
                   "bf16 occ20000: the unbounded read differs")
-        if name != "full":
+        if name not in ("full", "one_chunk"):
             continue
-        check(cnt_k.sum().item() > 0, "bf16 full bank has nonzero counts")
-        read_ms = time_ms(lambda: bank_read_cuda.bank_read(
-            q, keys, values, valid, occ_t, chunk, THRES))
-        read_kernel_ms = time_ms(lambda: bank_read_cuda.bank_read_partials(
-            q, keys, values, valid, occ_t, chunk, splits))
-        count_ms = time_ms(lambda: bank_read_cuda.bank_count(
-            q, keys, valid, occ_t, log_thres, chunk))
-        plain_read_ms = time_ms(lambda: [attention._read_occ_sweep(
-            keys[o], values[o], valid[o], q, chunk, occ)
-            for o in range(OBJ)], reps=5)
-        plain_count_ms = time_ms(lambda: [attention._count_occ_sweep(
-            keys[o], valid[o], q, log_thres[o], chunk, occ)
-            for o in range(OBJ)], reps=5)
-        sdpa, backend = _sdpa_bf16(q, keys, values, valid)
-        sdpa_ms = time_ms(sdpa, reps=5)
-        # a reference, not the same function: cuBLAS bf16 q @ keys^T, the
-        # scores the count compares, written out in full
-        scores_ms = time_ms(lambda: torch.matmul(q, keys.transpose(1, 2)),
-                            reps=5)
-        n_vis = n_visit
-        read_flop = OBJ * 2 * P * n_vis * (DK + DV)
-        read_bytes = 2 * (P * DK + OBJ * n_vis * (DK + DV)) \
-            + 4 * OBJ * P * (DV + 3) + OBJ * n_vis
-        count_flop = OBJ * 2 * P * n_vis * DK
-        count_bytes = 2 * (P * DK + OBJ * n_vis * DK) \
-            + 4 * (OBJ * P + OBJ * N) + OBJ * n_vis
-
-        def bound(flop, n_bytes):
-            t_ops, t_bytes = flop / BF16_PEAK, n_bytes / HBM_RATE
-            return (1e3 * max(t_ops, t_bytes),
-                    "operations" if t_ops > t_bytes else "bytes")
-
-        timing = dict(
-            bank_read_bf16=(read_ms, plain_read_ms, sdpa_ms,
-                            *bound(read_flop, read_bytes),
-                            {"read_kernel_ms": read_kernel_ms,
-                             "splits": splits, "sdpa_backend": backend}),
-            bank_count_bf16=(count_ms, plain_count_ms, None,
-                             *bound(count_flop, count_bytes),
-                             {"reference_cublas_bf16_scores_ms":
-                              scores_ms}))
-        log("kernels_bf16", f"full: read + combine {read_ms:.3f} ms (read "
-            f"kernel {read_kernel_ms:.3f}, S {splits}; plain "
-            f"{plain_read_ms:.3f}, sdpa {backend} {sdpa_ms:.3f}, bound "
-            f"{timing['bank_read_bf16'][3]:.3f}); count {count_ms:.3f} ms "
-            f"(plain {plain_count_ms:.3f}, bound "
-            f"{timing['bank_count_bf16'][3]:.3f}, cuBLAS bf16 scores "
-            f"{scores_ms:.3f})")
+        check(cnt_k.sum().item() > 0, f"bf16 {name} has nonzero counts")
+        timing[name] = _time_bf16(q, keys, values, valid, occ_t, occ,
+                                  splits, log_thres)
     del keys, values, q, rand_valid, none_valid, cases, parts
     torch.cuda.empty_cache()
     return errs, timing
@@ -656,7 +708,12 @@ def kernel_rows(errs, timing, launches, build, errs16, timing16,
             **build[kernel]})
     for name, kernel, idx in (("bank_read_bf16", "read_bf16_kernel", 0),
                               ("bank_count_bf16", "count_bf16_kernel", 1)):
-        ms, plain_ms, lib_ms, bound_ms, bound_by, extra = timing16[name]
+        ms, plain_ms, lib_ms, bound_ms, bound_by, extra = \
+            timing16["full"][name]
+        one = timing16["one_chunk"][name]
+        extra = {**extra, "one_chunk": {
+            "ms": one[0], "plain_ms": one[1], "library_ms": one[2],
+            "bound_ms": one[3], "bound_by": one[4], **one[5]}}
         rows.append({
             "name": name, "route": "cuda",
             "source": "vfloodnet_tpu_torch/csrc/bank_read_bf16.cu",

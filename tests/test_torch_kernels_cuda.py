@@ -166,6 +166,15 @@ def test_dispatcher_counts_launches_and_refuses_bad_input(dev):
     (20000, 129, 8192, 20000, 4, None),  # ragged N, last segment padded
     (5000, 65, 1024, 4000, 6, None),   # P one past two query tiles
     (3000, 50, 512, 2500, 7, None),
+    # all invalid, the visited range (1024) past N = 1000 in both objects:
+    # the 24 padding slots must be zeros, not the next object's rows
+    (1000, 37, 256, 1000, 5, 0),
+    # the main path's shape: P = 1620 at one 8,192-slot chunk, where the
+    # count cuts the query tiles across blocks
+    (20000, 1620, 8192, 1700, 5, None),
+    # 500 visited slots: the last segment ends 52 slots into a 64-slot
+    # tile, with valid slots past it
+    (1000, 70, 100, 430, 3, None),
 ])
 def test_bf16_kernels_match_plain(dev, n, p, chunk, occ, splits, prefix):
     keys, values, valid, q = _bank(dev, 2, n, p, seed=11 * n + p,
@@ -177,7 +186,8 @@ def test_bf16_kernels_match_plain(dev, n, p, chunk, occ, splits, prefix):
     cnt = bank_read_cuda.bank_count(q, keys, valid, occ_t, log_thres, chunk)
     bound = n if occ is None else occ
     n_visit = attention.visited_slots(n, chunk, bound)
-    seg = attention.segment_length(n_visit, splits, bank_read_cuda.READ_TILE)
+    seg = attention.segment_length(n_visit, splits,
+                                   bank_read_cuda.read_tile(torch.bfloat16))
     for o in range(2):
         want_mem, wm, wl = attention._read_occ_sweep(
             keys[o], values[o], valid[o], q, chunk, bound)
@@ -188,12 +198,11 @@ def test_bf16_kernels_match_plain(dev, n, p, chunk, occ, splits, prefix):
                                               log_thres[o], chunk, bound)
         assert (cnt[o] - want_cnt).abs().max().item() <= 1.0
         assert cnt[o, min(n_visit, n):].abs().sum().item() == 0
-        if prefix == 0:
+        if prefix == 0:   # every visited slot, padding included, weighs 1
             assert cnt[o].sum().item() == 0
-            want = values[o, :n_visit].float().mean(0).expand_as(mem[o])
-            if n_visit <= n:
-                torch.testing.assert_close(mem[o], want, rtol=1e-2,
-                                           atol=2e-3)
+            want = values[o, :n_visit].float().sum(0) / n_visit
+            torch.testing.assert_close(mem[o], want.expand_as(mem[o]),
+                                       rtol=1e-2, atol=2e-3)
         wms, wls, waccs = attention._read_occ_segments(
             keys[o], values[o], valid[o], q, chunk, bound, splits)
         for s_ in range(splits):

@@ -1,5 +1,6 @@
-// Helpers shared by the float32 (bank_read.cu) and bf16 (bank_read_bf16.cu)
-// bank kernels: shapes, the occupancy bound, cp.async and quad reductions.
+// Helpers of the float32 (bank_read.cu) and bf16 (bank_read_bf16.cu) bank
+// kernels: shapes, the occupancy bound and quad reductions (both), cp.async
+// (the float32 kernels).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -11,10 +11,11 @@ drives the bank's LFU eviction,
     cnt[n] = #{p : softmax_n(q_p . k / sqrt(dk)) > thres}.
 
 On CUDA tensors the read (over S bank segments, then a combine) and the
-count are the hand-written kernels of ``csrc/bank_read.cu``
-(:mod:`.bank_read_cuda`). On CPU tensors the plain versions below run; they
-repeat the JAX package's three variants (dense, chunked and
-occupancy-bounded), and the tests hold each against its JAX counterpart.
+count are the hand-written kernels of ``csrc/bank_read.cu`` (float32) and
+``csrc/bank_read_bf16.cu`` (bf16), through :mod:`.bank_read_cuda`. On CPU
+tensors the plain versions below run; they repeat the JAX package's three
+variants (dense, chunked and occupancy-bounded), and the tests hold each
+against its JAX counterpart.
 The plain versions of the kernels are ``_read_occ_sweep`` (read),
 ``_read_occ_segments`` (the read's per-segment partials),
 ``combine_partials`` (combine) and ``_count_occ_sweep`` (count). A CUDA
@@ -169,14 +170,18 @@ def segment_length(n_visit: int, splits: int, tile: int) -> int:
 
 
 def _read_occ_segments(keys, values, valid, q, chunk, occ_bound, splits,
-                       tile=bank_read_cuda.READ_TILE):
+                       tile=None):
     """Plain version of the read kernel's partials: the visited slots of
-    the occupancy-bounded read cut into ``splits`` segments, each swept on
-    its own. -> (m_s [S, P], l_s [S, P], acc_s [S, P, dv]), acc_s not
+    the occupancy-bounded read cut into ``splits`` segments of whole
+    ``tile``s (by default the read kernel's tile for the bank's dtype,
+    :func:`.bank_read_cuda.read_tile`), each swept on its own.
+    -> (m_s [S, P], l_s [S, P], acc_s [S, P, dv]), acc_s not
     normalised; a segment with no visited slot has m = -inf, l = 0,
     acc = 0. :func:`combine_partials` merges them."""
     n, dk = keys.shape
     n_visit = visited_slots(n, chunk, occ_bound)
+    if tile is None:
+        tile = bank_read_cuda.read_tile(keys.dtype)
     seg = segment_length(n_visit, splits, tile)
     rows = max(n, n_visit)
     keys_p, values_p = _pad_rows(keys, rows), _pad_rows(values, rows)

@@ -41,10 +41,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DK, DV = 128, 512
-# Bank slots per tile of the read kernel (a segment is a whole number of
-# them) and query rows per tile; checked against the library at load.
-READ_TILE, QUERY_TILE = 32, 64
+# Bank slots per tile of the float32 and bf16 read kernels (a segment is a
+# whole number of them) and query rows per tile; checked against each
+# library at load.
+READ_TILE, READ_TILE_BF16, QUERY_TILE = 32, 64, 64
 MAX_SPLITS = 8
+# Bank slots per work item of the bf16 count kernel, and the most query
+# tiles one item may take (its hit counters are 16 bits wide).
+COUNT_TILE_BF16, COUNT_MAX_QTILES = 512, 1023
 
 # Launch counts of the kernels in this process (reset with
 # reset_launches()); a run reads them to show which kernels it went through.
@@ -154,13 +158,14 @@ def _load(name: str = "bank_read") -> ctypes.CDLL:
         lib16.vft_bank_count_bf16.restype = i
         lib16.vft_bf16_dims.argtypes = [ctypes.POINTER(i)] * 4
         lib16.vft_bf16_dims.restype = i
-        for dims_fn in (lib.vft_bank_dims, lib16.vft_bf16_dims):
+        for dims_fn, tile in ((lib.vft_bank_dims, READ_TILE),
+                              (lib16.vft_bf16_dims, READ_TILE_BF16)):
             dims = [i() for _ in range(4)]
             dims_fn(*map(ctypes.byref, dims))
             got = tuple(d.value for d in dims)
-            if got != (DK, DV, READ_TILE, QUERY_TILE):
+            if got != (DK, DV, tile, QUERY_TILE):
                 raise RuntimeError(f"kernel dims {got} != "
-                                   f"{(DK, DV, READ_TILE, QUERY_TILE)}")
+                                   f"{(DK, DV, tile, QUERY_TILE)}")
         _libs.update(bank_read=lib, bank_read_bf16=lib16)
     return _libs[name]
 
@@ -191,6 +196,36 @@ def _occ_ptr(occ_bound, device) -> Optional[int]:
         return None
     _check(occ_bound, "occ_bound", torch.int32, (1,), device)
     return occ_bound.data_ptr()
+
+
+def read_tile(dtype: torch.dtype) -> int:
+    """Bank slots per tile of the read kernel for a bank of ``dtype``: a
+    segment of the read is a whole number of them."""
+    return READ_TILE_BF16 if dtype == torch.bfloat16 else READ_TILE
+
+
+def count_splits(slot_tiles: int, q_tiles: int, sms: int) -> int:
+    """Query-tile shares of each slot tile in the bf16 count kernel, which
+    makes this choice on the device from the visited slots (the same rule
+    as ``count_splits`` in ``csrc/bank_read_bf16.cu``). Its grid is one
+    block per SM, walking over slot_tiles x shares items: one share when
+    the slot tiles alone fill the ``sms`` blocks; else the share count s in
+    [ceil(sms / slot_tiles), 2 ceil(sms / slot_tiles)] (at most q_tiles)
+    whose items leave the least of the last round idle (the smallest such
+    s); never fewer than ceil(q_tiles / COUNT_MAX_QTILES). At one
+    8,192-slot chunk of 2 objects (32 slot tiles) and P = 1620 (26 query
+    tiles) on 132 SMs that is 8 shares: 256 items, 97 % of two rounds."""
+    least = -(-q_tiles // COUNT_MAX_QTILES)
+    if slot_tiles >= sms:
+        return least
+    lo = max(min(-(-sms // slot_tiles), q_tiles), least)
+    hi = max(min(2 * lo, q_tiles), lo)
+
+    def fill(s):
+        items = slot_tiles * s
+        return items / (-(-items // sms) * sms)
+
+    return max(range(lo, hi + 1), key=lambda s: (fill(s), -s))
 
 
 def default_splits(obj_n: int, p: int, sms: int) -> int:
@@ -289,7 +324,8 @@ def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
                occ_bound: Optional[torch.Tensor], log_thres: torch.Tensor,
                chunk: int) -> torch.Tensor:
     """Count kernel: q [P, dk] and keys [obj, N, dk] of one dtype (float32:
-    ``count_kernel``; bfloat16: ``count_bf16_kernel``), valid [obj, N]
+    ``count_kernel``; bfloat16: ``count_bf16_kernel``, one block per SM
+    over the items of :func:`count_splits`), valid [obj, N]
     bool, occ_bound [1] int32 or None, log_thres [obj, P] float32 -> cnt
     [obj, N] float32."""
     obj_n, n, _ = keys.shape
@@ -306,7 +342,10 @@ def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
     name = "bank_count" if dt == torch.float32 else "bank_count_bf16"
     launch = getattr(_load("bank_read" if dt == torch.float32
                            else "bank_read_bf16"), "vft_" + name)
-    cnt = torch.empty((obj_n, n), dtype=torch.float32, device=dev)
+    # the bf16 kernel adds its counts into zeros; the float32 one writes
+    # every slot
+    cnt = (torch.empty if dt == torch.float32 else torch.zeros)(
+        (obj_n, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = launch(
             q.data_ptr(), keys.data_ptr(), valid.data_ptr(),
