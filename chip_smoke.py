@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one line with its elapsed seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build: two ``nvcc`` runs, started together, build the float32 bank
-   read, combine and count kernels and the bf16 read and count kernels into
-   ``vfloodnet_tpu_torch/_build/``; each kernel's registers and spills
-   (``-Xptxas -v``) and its tensor-core instructions (``cuobjdump -sass``:
+2. build: three ``nvcc`` runs, started together, build the float32 bank
+   read, combine and count kernels, the bf16 read and count kernels and
+   the largest-CC kernels into ``vfloodnet_tpu_torch/_build/``; each
+   kernel's registers and spills (``-Xptxas -v``) and its tensor-core
+   instructions (``cuobjdump -sass``:
    the float32 read and count must hold ``HMMA`` in TF32, the bf16 ones
    warpgroup ``HGMMA`` in bf16 and no ``HMMA``, and spill nothing).
 3. kernels: each kernel against its plain PyTorch version at the main
@@ -27,12 +28,29 @@ Phases, each printing one line with its elapsed seconds:
    (the port calls neither).
 4. main path: the trained AFB-URR (``records/checkpoints/video/best.npz``
    through the weight bridge) segments eight synthetic 1080p frames at the
-   480 operating point
-   with the device largest-CC cleanup; the read, combine and count must
-   each launch once per frame; then the same engine on a small clip
-   against itself on the CPU, where the plain versions run.
-5. full bank: the bank filled to capacity, two steps with LFU eviction.
-6. bf16 kernels: the bf16 read (with the float32 combine) and count
+   480 operating point with the device largest-CC cleanup, on the eager
+   engine (``cuda_graph=False``); steps 2-8 run under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in the step
+   raises; the read, combine, count and CC kernels must each launch once
+   per frame.
+5. graph: the default engine, which replays the step as a CUDA graph, on
+   the same frames: its bank must equal the eager engine's tensor for
+   tensor and its labels agree on > 0.999 (cuDNN benchmarking off); then
+   ``step_n`` of four frames against four eager steps (bank equal again),
+   both timed unsynchronised and profiled (device busy time, idle share,
+   and the kernels counted by name in the replays, which must include the
+   read, combine, count and CC kernels); then both banks filled to
+   capacity, three steps with LFU eviction each (the eager ones under the
+   sync debug mode), banks equal.
+6. small clip: the graph engine on a 240-px clip against itself on the
+   CPU (plain versions), at ``memorize_every`` 1 and 2: agreement > 0.999.
+7. CC: the CC kernel against its plain version, exactly, on the step's
+   1/16 grid, 416 x 416 batches, an empty map, a one-pixel map, a snake and
+   equal-size ties; its time, the plain version's and scipy's on the host.
+8. image: the trained LinkNet (``records/checkpoints/image/best.npz``)
+   through the device pipeline at 416 on a lake frame, card against CPU,
+   > 0.999; its time, and a batch of 4 through the device tail.
+9. bf16 kernels: the bf16 read (with the float32 combine) and count
    against their plain versions on a bf16 bank at the same shapes (full,
    a bound of 20,000 with valid slots past it, a bound inside the last of
    5 segments, all invalid at occupancy 0, and a bound of 1,700: one
@@ -44,17 +62,17 @@ Phases, each printing one line with its elapsed seconds:
    bf16 ``scaled_dot_product_attention`` call with the validity mask (the
    backend it took is named) and the cuBLAS bf16 ``q @ keys^T`` of the
    count's scores, each at the full bank and at the one visited chunk.
-7. bf16 main path: an engine of ``AFBURR(dtype=torch.bfloat16)`` built
-   from the weights of phase 4's model (which must stay float32) and a
-   bf16 bank segments the eight frames; the bf16 read and count and the
-   combine must each launch once per frame and the float32 read and count
-   never; then the bf16 engine on the small clip against itself on the CPU
-   (its agreement must be at least the agreement of the CPU's bf16 and
-   float32 labels on that clip, less 0.01: bf16 labels there move with
-   the convolutions' summation order), and a full bf16 bank with
-   eviction.
+10. bf16 main path and graph: phases 4-5 with
+   ``AFBURR(dtype=torch.bfloat16)`` built from phase 4's weights (which
+   must stay float32) and a bf16 bank; the bf16 read and count and the
+   combine launch once per frame and the float32 read and count never;
+   then phase 6 in bf16, whose agreement must be at least the agreement
+   of the CPU's bf16 and float32 labels on that clip (at the same
+   ``memorize_every``), less 0.01: bf16 labels there move with the
+   convolutions' summation order.
 
-Then one JSON line of the kernels' numbers and, last, ``{"ok": true,
+Then one JSON line of the kernels' numbers (with the step times of
+phase 5 and the image path's beside them) and, last, ``{"ok": true,
 "device": {...}}``. In the JSON line, ``bank_read`` times the read with its
 combine (the function that its plain version and the yardstick compute)
 and gives the read kernel alone as ``read_kernel_ms``; ``bound_ms`` is the
@@ -64,9 +82,11 @@ one (67 TFLOP/s). Any failed check raises and the exit code is not 0; the
 script exits 1 with no result when CUDA is absent.
 """
 
+import contextlib
 import copy
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -79,10 +99,13 @@ import torch.nn.functional as F
 
 from vfloodnet_tpu_torch.memory import FeatureBank
 from vfloodnet_tpu_torch.models import AFBURR
-from vfloodnet_tpu_torch.ops import attention, bank_read_cuda, short_side_size
+from vfloodnet_tpu_torch.ops import (attention, bank_read_cuda, cc, cc_cuda,
+                                     short_side_size)
+from vfloodnet_tpu_torch.pipelines import image_seg
 from vfloodnet_tpu_torch.pipelines.loaders import (default_checkpoint,
-                                                   load_afb_urr)
-from vfloodnet_tpu_torch.pipelines.video_seg import VideoSegEngine
+                                                   load_afb_urr, load_linknet)
+from vfloodnet_tpu_torch.pipelines.video_seg import (VideoSegEngine,
+                                                     host_largest_cc)
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -139,7 +162,11 @@ def device_phase():
 
 
 KERNELS = ("read_bf16_kernel", "count_bf16_kernel", "read_kernel",
-           "combine_kernel", "count_kernel")
+           "combine_kernel", "count_kernel", "cc_init_kernel",
+           "cc_merge_kernel", "cc_compress_kernel", "cc_argmax_kernel",
+           "cc_keep_kernel")
+BANK_STATE = ("keys", "values", "valid", "birth", "usage", "occ", "peak_n",
+              "replace_n")
 
 
 def _kernel_name(symbol):
@@ -591,60 +618,251 @@ def synthetic_clip(n, h, w, seed):
     return frames, water.astype(np.uint8)
 
 
+def _no_sync_step(eng, state, frame, idx):
+    """One step under ``torch.cuda.set_sync_debug_mode("error")``: any
+    host sync inside it raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return eng.step(state, frame, idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def main_path_phase(model, kernels):
-    """The engine of ``model`` (and a bank of its compute dtype) on eight
-    synthetic 1080p frames; each of ``kernels`` (and no other bank kernel)
-    must launch once per frame."""
+    """The eager engine of ``model`` (and a bank of its compute dtype) on
+    eight synthetic 1080p frames; each of ``kernels`` (and no other bank
+    kernel) must launch once per frame, and the CC kernel too. Every step
+    after the first (which fills the engine's caches) runs under the sync
+    debug mode "error". Returns (launches, state, engine, frames,
+    labels)."""
     frames, mask0 = synthetic_clip(9, *FRAME_HW, SEED)
     fb = FeatureBank(obj_n=2, memory_budget=BUDGET, dtype=model.dtype,
                      device=DEV)
     check(fb.class_budget == N, "98,304 slots per object")
     eng = VideoSegEngine(model, fb, downsample=DOWNSAMPLE,
-                         postprocess="device")
+                         postprocess="device", cuda_graph=False)
     state = eng.bootstrap(frames[0], mask0)
     check(state.keys.dtype == model.dtype and
           state.usage.dtype == torch.float32, "bank dtypes")
     step_ms, labels = [], []
     bank_read_cuda.reset_launches()
+    cc_cuda.reset_launches()
     for i, f in enumerate(frames[1:]):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, lab = eng.step(state, f, i + 1)
+        if i == 0:
+            state, lab = eng.step(state, f, i + 1)
+        else:
+            state, lab = _no_sync_step(eng, state, f, i + 1)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
         labels.append(lab)
-    launches = dict(bank_read_cuda.launches)
+    launches = {**bank_read_cuda.launches, **cc_cuda.launches}
     for lab in labels:
         arr = eng.fetch_label(lab)
         check(arr.shape == FRAME_HW and arr.dtype == np.uint8,
               f"label shape {arr.shape} {arr.dtype}")
         check(set(np.unique(arr)) <= {0, 1}, "labels in {0, 1}")
-    want = {k: (len(frames) - 1 if k in kernels else 0) for k in launches}
-    check(launches == want, f"main path launched {kernels} once per "
-          f"frame and no other bank kernel: {launches}")
+    want = {k: (len(frames) - 1 if k in kernels + ("largest_cc",) else 0)
+            for k in launches}
+    check(launches == want, f"main path launched {kernels} and the CC "
+          f"kernel once per frame and no other bank kernel: {launches}")
     warm = step_ms[1:]
     water = float(np.mean([eng.fetch_label(lab).mean() for lab in labels]))
     h, w = short_side_size(*FRAME_HW, DOWNSAMPLE)
-    log("main", f"{model.dtype}, trained weights, 8 steps of {FRAME_HW} -> "
-        f"{(h, w)} (P = {-(-h // 16) * -(-w // 16)}): first step "
+    log("main", f"{model.dtype}, trained weights, eager, 8 steps of "
+        f"{FRAME_HW} -> {(h, w)} (P = {-(-h // 16) * -(-w // 16)}), steps "
+        f"2-8 under sync debug mode 'error' (no sync raised): first step "
         f"{step_ms[0]:.1f} ms, then per step {['%.1f' % s for s in warm]} "
         f"ms, median {np.median(warm):.1f} ms = "
         f"{1e3 / np.median(warm):.2f} frames/s; occ {state.occ.tolist()}; "
         f"launches {launches}; water fraction {water:.3f}")
-    return launches, state, eng
+    return launches, state, eng, frames, labels
 
 
-def small_agreement_phase(model):
-    """The same engine on a 240-px clip, on the card (kernels) and on the
-    CPU (plain versions), from the same weights: (label agreement, the
-    CPU's labels)."""
-    frames, mask0 = synthetic_clip(4, 240, 427, SEED + 1)
+def _bank_equal(a, b, what):
+    diff = [k for k in BANK_STATE
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+    check(not diff, f"{what}: bank tensors differ: {diff}")
+
+
+def _label_agreement(eng, got, want):
+    return float(np.mean([(eng.fetch_label(g) == eng.fetch_label(w)).mean()
+                          for g, w in zip(got, want)]))
+
+
+def _timed_steps(eng, state, frames, first_idx, n_steps=None):
+    """Milliseconds per step of ``step`` over ``frames`` (``step_n`` when
+    ``n_steps``), unsynchronised, CUDA events at the run's ends."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    if n_steps:
+        state, labels = eng.step_n(state, np.stack(frames), first_idx)
+        labels = list(labels)
+    else:
+        labels = []
+        for i, f in enumerate(frames):
+            state, lab = eng.step(state, f, first_idx + i)
+            labels.append(lab)
+    b.record()
+    b.synchronize()
+    return state, labels, a.elapsed_time(b) / len(frames)
+
+
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _busy_ms(prof, kernel_names):
+    """Device time in a ``torch.profiler`` trace: (busy ms, {kernel name:
+    (ms, launches)} for the names in ``kernel_names``)."""
+    from torch.autograd import DeviceType
+    busy, per = 0.0, {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        busy += evt.self_device_time_total / 1e3
+        name = _kernel_name(evt.key)
+        if name in kernel_names:
+            ms, n = per.get(name, (0.0, 0))
+            per[name] = (ms + evt.self_device_time_total / 1e3,
+                         n + evt.count)
+    return busy, per
+
+
+def graph_phase(model, eager, eager_state, frames, eager_labels, kernels):
+    """The graph engine of ``model`` (the default on the card) against the
+    eager one of :func:`main_path_phase` on the same eight frames: the
+    bank equal tensor for tensor and labels > 0.999; then four more frames
+    as ``step_n`` against four eager steps (bank equal again), timed, with
+    the device's busy time from ``torch.profiler``; the kernels counted by
+    name in that profile must have launched from inside the graphs. Then a
+    full bank on both engines (eager steps under sync debug "error"), 3
+    frames with LFU eviction, banks equal."""
+    torch.backends.cudnn.benchmark = False
+    fb = FeatureBank(obj_n=2, memory_budget=BUDGET, dtype=model.dtype,
+                     device=DEV)
+    eng = VideoSegEngine(model, fb, downsample=DOWNSAMPLE,
+                         postprocess="device")
+    check(eng.cuda_graph, "the engine replays graphs on the card by default")
+    state = eng.bootstrap(frames[0], synthetic_clip(1, *FRAME_HW, SEED)[1])
+    bank_read_cuda.reset_launches()
+    cc_cuda.reset_launches()
+    labels = []
+    for i, f in enumerate(frames[1:]):
+        state, lab = eng.step(state, f, i + 1)
+        labels.append(lab)
+    torch.cuda.synchronize()
+    counted = {**bank_read_cuda.launches, **cc_cuda.launches}
+    agree = _label_agreement(eng, labels, eager_labels)
+    _bank_equal(state, eager_state, "graph vs eager, 8 frames")
+    check(agree > 0.999, f"graph vs eager labels agree {agree}")
+    replays = sum(g.replays for g in eng.graphs.values())
+    log("graph", f"{model.dtype}: 8 frames, {len(eng.graphs)} graphs "
+        f"captured, {replays} replays; bank equal to the eager engine's, "
+        f"labels agree {agree:.6f}; counted launches (eager steps and "
+        f"captures) {counted}; launches by the replays "
+        f"{eng.graph_launches()}")
+    more, _ = synthetic_clip(5, *FRAME_HW, SEED + 5)
+    more, n = np.stack(more[1:]), 4
+    # From here each pass starts from the same bank with an exact
+    # occupancy bound that is not refreshed within the pass, so every pass
+    # meets the same graph keys: the first runs each new key eagerly, the
+    # second captures, the timed and profiled passes only replay.
+    snap = {k: getattr(state, k).clone() for k in BANK_STATE}
+    engines = {"eager": (eager, eager_state), "graph": (eng, state)}
+    for _, st in engines.values():
+        st.occ_host.refresh = lambda occ: None
+
+    def run(name, around=contextlib.nullcontext):
+        e, st = engines[name]
+        for k in BANK_STATE:
+            getattr(st, k).copy_(snap[k])
+        st.occ_host.reset(st.occ)
+        with around():
+            if name == "graph":
+                return list(e.step_n(st, more, 9)[1])
+            return [e.step(st, f, 9 + i)[1] for i, f in enumerate(more)]
+
+    labels_n = {name: run(name) for name in engines}
+    _bank_equal(state, eager_state, "step_n vs eager steps")
+    agree_n = _label_agreement(eng, labels_n["graph"], labels_n["eager"])
+    check(agree_n > 0.999, f"step_n vs steps labels agree {agree_n}")
+    run("graph")                                         # captures
+    captured = len(eng.graphs)
+    ms, busy, per = {}, {}, {}
+    names = kernels + ("cc_init_kernel", "cc_keep_kernel")
+    for name in engines:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        @contextlib.contextmanager
+        def timed():
+            torch.cuda.synchronize()
+            events[0].record()
+            yield
+            events[1].record()
+            events[1].synchronize()
+        run(name, timed)
+        ms[name] = events[0].elapsed_time(events[1]) / n
+        before = eng.graph_launches()
+        holder = {}
+
+        @contextlib.contextmanager
+        def profiled():
+            with _profile() as prof:
+                yield
+                torch.cuda.synchronize()
+            holder["prof"] = prof
+        run(name, profiled)
+        t_busy, per[name] = _busy_ms(holder["prof"], names)
+        busy[name] = t_busy / n
+        if name == "graph":
+            replay_launches = {k: v - before.get(k, 0)
+                               for k, v in eng.graph_launches().items()}
+    check(len(eng.graphs) == captured, "the timed passes only replayed")
+    for name in names:
+        check(per["graph"].get(name, (0, 0))[1] >= n,
+              f"{name} launched from the graph replays: {per['graph']}")
+    for st in (state, eager_state):
+        del st.occ_host.refresh
+    timing = {"eager_ms": ms["eager"], "graph_ms": ms["graph"],
+              "eager_busy_ms": busy["eager"], "graph_busy_ms": busy["graph"],
+              "eager_idle": 1 - busy["eager"] / ms["eager"],
+              "graph_idle": 1 - busy["graph"] / ms["graph"],
+              "graph_kernels": {k: {"ms_per_step": v[0] / n,
+                                    "launches": v[1]}
+                                for k, v in per["graph"].items()},
+              "eager_kernels": {k: {"ms_per_step": v[0] / n,
+                                    "launches": v[1]}
+                                for k, v in per["eager"].items()},
+              "replay_launches": replay_launches}
+    log("graph", f"{model.dtype}: step_n of {n} frames equal to {n} eager "
+        f"steps (labels {agree_n:.6f}); ms per step, unsynchronised: eager "
+        f"{ms['eager']:.2f} (device busy {busy['eager']:.2f}, idle "
+        f"{timing['eager_idle']:.1%}), graph {ms['graph']:.2f} (busy "
+        f"{busy['graph']:.2f}, idle {timing['graph_idle']:.1%}); kernels "
+        f"in the replays (profiler, ms and launches over {n} steps) "
+        f"{per['graph']}; eager {per['eager']}; launches the replays "
+        f"recorded {replay_launches}")
+    full = full_bank_phase(eager, eager_state, eng, state)
+    return timing, full
+
+
+def small_agreement_phase(model, memorize_every=1):
+    """The same engine on a 240-px clip, on the card (kernels, graph
+    replays) and on the CPU (plain versions), from the same weights, at
+    ``memorize_every``: (label agreement, the CPU's labels)."""
+    frames, mask0 = synthetic_clip(5, 240, 427, SEED + 1)
     out = {}
     for dev in (DEV, torch.device("cpu")):
         m = copy.deepcopy(model).to(dev)
         eng = VideoSegEngine(m, FeatureBank(obj_n=2, memory_budget=65_536,
                                             dtype=model.dtype, device=dev),
-                             downsample=240, postprocess="device")
+                             downsample=240, postprocess="device",
+                             memorize_every=memorize_every)
         state = eng.bootstrap(frames[0], mask0)
         labs = []
         for i, f in enumerate(frames[1:]):
@@ -652,38 +870,149 @@ def small_agreement_phase(model):
             labs.append(eng.fetch_label(lab))
         out[dev.type] = np.stack(labs)
     agree = float((out[DEV.type] == out["cpu"]).mean())
-    log("main", f"{model.dtype}, small clip 240x427, 3 steps: card vs CPU "
-        f"label agreement {agree:.6f}")
+    log("main", f"{model.dtype}, small clip 240x427, 4 steps, "
+        f"memorize_every {memorize_every}: card vs CPU label agreement "
+        f"{agree:.6f}")
     return agree, out["cpu"]
 
 
-def full_bank_phase(eng, state):
-    g = torch.Generator(device=DEV).manual_seed(SEED + 2)
-    state.keys.normal_(generator=g)
-    state.values.normal_(generator=g)
-    state.valid.fill_(True)
-    state.usage.uniform_(0.0, 5.0, generator=g)
-    state.birth.zero_()
-    cap = state.capacity
-    state.occ.fill_(cap)
-    replaced0 = state.replace_n.clone()
-    frames, _ = synthetic_clip(2, *FRAME_HW, SEED + 3)
-    step_ms = []
-    for i, f in enumerate(frames):
+def _cc_cases():
+    """name -> uint8 maps [B, H, W] on the card: the video step's 1/16
+    grid, 416 x 416 batches, empty, one pixel, a snake, equal-size ties."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    h16, w16 = (d // 16 for d in short_side_size(*FRAME_HW, DOWNSAMPLE))
+
+    def blobs(b, h, w, p):
+        noise = torch.rand(b, 1, h, w, device=DEV, generator=g)
+        smooth = F.avg_pool2d(noise, 5, 1, 2)
+        return (smooth > p).to(torch.uint8)[:, 0]
+
+    snake = torch.zeros(1, 64, 64, dtype=torch.uint8, device=DEV)
+    snake[0, ::4, 1:63] = 1
+    snake[0, 1::8, 62] = snake[0, 2::8, 62] = snake[0, 3::8, 62] = 1
+    snake[0, 5::8, 1] = snake[0, 6::8, 1] = snake[0, 7::8, 1] = 1
+    ties = torch.zeros(1, 40, 40, dtype=torch.uint8, device=DEV)
+    ties[0, 2:6, 30:34] = ties[0, 20:24, 3:7] = ties[0, 30:34, 30:34] = 1
+    one = torch.zeros(2, 416, 416, dtype=torch.uint8, device=DEV)
+    one[1, 200, 300] = 1
+    return {"grid_1_16": blobs(1, h16, w16, 0.5),
+            "batch_416": blobs(4, 416, 416, 0.5),
+            "batch_416_sparse": blobs(4, 416, 416, 0.53),
+            "empty": torch.zeros(1, h16, w16, dtype=torch.uint8, device=DEV),
+            "one_pixel": one, "snake": snake, "ties": ties}
+
+
+def cc_phase(launches):
+    """The CC kernel against its plain version, exactly, on every case;
+    its time, the plain version's and scipy's on the host, at the video
+    step's grid and at a 416 x 416 batch of 4."""
+    rows = {}
+    for name, maps in _cc_cases().items():
+        got = cc_cuda.largest_cc(maps)
+        want = cc.largest_cc_plain(maps)
         torch.cuda.synchronize()
+        check(torch.equal(got, want), f"cc {name}: kernel equals plain")
+        if name == "snake":
+            check(int(got.sum()) == int(maps.sum()), "the snake is one "
+                  "component")
+        if name == "ties":
+            check(int(got[0, 2, 30]) == 1 and int(got.sum()) == 16,
+                  "ties go to the smaller root")
+        rows[name] = int(got.sum())
+    timing = {}
+    cases = _cc_cases()
+    for name in ("grid_1_16", "batch_416"):
+        maps = cases[name]
+        host = maps.cpu().numpy()
+        host_largest_cc(host[0])            # imports scipy
         t = time.perf_counter()
-        state, lab = eng.step(state, f, 20 + i)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t))
-        check(eng.fetch_label(lab).shape == FRAME_HW, "full-bank label")
-    evicted = (state.replace_n - replaced0).tolist()
-    check(state.occ.tolist() == [cap, cap], f"occ stays {cap}: {state.occ}")
-    check(min(evicted) > 0, f"eviction ran: {evicted}")
-    check(bool(torch.isfinite(state.keys).all() and
-               torch.isfinite(state.values).all()), "bank finite")
-    log("full_bank", f"{state.keys.dtype} bank, 2 steps at occ {cap}: "
-        f"{['%.1f' % s for s in step_ms]} "
-        f"ms; evicted {evicted}")
+        for _ in range(5):
+            [host_largest_cc(m) for m in host]
+        scipy_ms = 1e3 * (time.perf_counter() - t) / 5
+        n_bytes = 2 * maps.numel()      # the mask in, the keep mask out
+        timing[name] = {
+            "ms": time_ms(lambda: cc_cuda.largest_cc(maps)),
+            "plain_ms": time_ms(lambda: cc.largest_cc_plain(maps), reps=5),
+            "scipy_host_ms": scipy_ms,
+            "bound_ms": 1e3 * n_bytes / HBM_RATE, "bound_by": "bytes",
+            "shape": list(maps.shape)}
+    log("cc", f"kernel equals plain on {rows} (kept cells); times "
+        f"{timing}; main-path launches {launches}")
+    return timing
+
+
+def linknet_phase():
+    """The trained LinkNet's device pipeline at 416 on a frame of the lake
+    clip (``records/port_fixtures/lake_frame0_480x270.npy``, decoded and
+    downsized ahead: the card's machine has no image decoder), on the card
+    against the port on the CPU: > 0.999 of pixels agree; its time on the
+    card, and that of a batch of 4 through the device tail."""
+    img = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "records", "port_fixtures",
+                               "lake_frame0_480x270.npy"))
+    img = img.astype(np.float32) / 255.0
+    out = {}
+    for dev in (DEV, torch.device("cpu")):
+        model = load_linknet(device=dev)
+        x = torch.from_numpy(img).to(dev)
+        cc_cuda.reset_launches()
+        out[dev.type] = image_seg.device_pipeline(model, x).cpu().numpy()
+        if dev.type == "cuda":
+            check(cc_cuda.launches["largest_cc"] == 1, "the image pipeline "
+                  "ran the CC kernel")
+            ms = time_ms(lambda: image_seg.device_pipeline(model, x))
+            g = torch.Generator(device=dev).manual_seed(SEED + 8)
+            batch = torch.rand(4, 416, 416, 3, device=dev, generator=g)
+            tail_ms = time_ms(lambda: image_seg.device_tail(
+                model, batch, FRAME_HW))
+    agree = float((out["cuda"] == out["cpu"]).mean())
+    log("image", f"trained LinkNet device pipeline, {img.shape[:2]} -> 416 "
+        f"-> {img.shape[:2]}: card vs CPU agreement {agree:.6f}, water "
+        f"fraction "
+        f"{out['cuda'].mean():.3f}; card {ms:.2f} ms a frame; batch of 4 "
+        f"at 416 with the device tail to {FRAME_HW} {tail_ms:.2f} ms")
+    check(agree > 0.999, "image pipeline: card and CPU agree on > 0.999")
+    check(0.0 < out["cuda"].mean() < 1.0, "the mask is not uniform")
+    return {"pipeline_ms": ms, "batch4_tail_ms": tail_ms, "agree": agree}
+
+
+def full_bank_phase(eager, eager_state, eng, state):
+    """Both banks filled to capacity alike, then three frames with LFU
+    eviction on the eager engine (under sync debug "error") and on the
+    graph engine (eager, capture, replay): the banks stay equal."""
+    frames, _ = synthetic_clip(3, *FRAME_HW, SEED + 3)
+    cap = state.capacity
+    out, banks = {}, {}
+    for name, e, st in (("eager", eager, eager_state), ("graph", eng, state)):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 2)
+        st.keys.normal_(generator=g)
+        st.values.normal_(generator=g)
+        st.valid.fill_(True)
+        st.usage.uniform_(0.0, 5.0, generator=g)
+        st.birth.zero_()
+        st.occ.fill_(cap)
+        st.replace_n.zero_()
+        st.occ_host.reset(st.occ)
+        step_ms = []
+        for i, f in enumerate(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, lab = (_no_sync_step(e, st, f, 20 + i) if name == "eager"
+                       else e.step(st, f, 20 + i))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            check(e.fetch_label(lab).shape == FRAME_HW, "full-bank label")
+        evicted = st.replace_n.tolist()
+        check(st.occ.tolist() == [cap, cap], f"occ stays {cap}: {st.occ}")
+        check(min(evicted) > 0, f"eviction ran: {evicted}")
+        check(bool(torch.isfinite(st.keys).all() and
+                   torch.isfinite(st.values).all()), "bank finite")
+        out[name] = step_ms
+        log("full_bank", f"{st.keys.dtype} bank, {name}, 3 steps at occ "
+            f"{cap}: {['%.1f' % s for s in step_ms]} ms (synchronised); "
+            f"evicted {evicted}")
+    _bank_equal(state, eager_state, "full bank, graph vs eager")
+    return out
 
 
 def kernel_rows(errs, timing, launches, build, errs16, timing16,
@@ -727,6 +1056,23 @@ def kernel_rows(errs, timing, launches, build, errs16, timing16,
     return rows
 
 
+def cc_row(cc_timing, launches, launches16):
+    """The CC kernel's row: times at the video step's 1/16 grid, the 416
+    batch beside them."""
+    t = cc_timing["grid_1_16"]
+    return {
+        "name": "largest_cc", "route": "cuda",
+        "source": "vfloodnet_tpu_torch/csrc/cc.cu",
+        "replaces": "vfloodnet_tpu/ops/cc.py:202",
+        "replaces_kind": "an XLA while_loop, not a Pallas kernel",
+        "launches": launches["largest_cc"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "scipy_host_ms": t["scipy_host_ms"], "shape": t["shape"],
+        "launches_bf16_main_path": launches16["largest_cc"],
+        "batch_416": cc_timing["batch_416"]}
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -743,38 +1089,55 @@ def main():
     build = build_phase()
     errs, timing = kernel_phase()
     model = load_afb_urr(default_checkpoint("video"), device=DEV)
-    launches, state, eng = main_path_phase(
-        model, ("bank_read", "bank_read_combine", "bank_count"))
+    f32_kernels = ("bank_read", "bank_read_combine", "bank_count")
+    launches, state, eng, frames, labels = main_path_phase(model,
+                                                           f32_kernels)
+    steps = {"float32": graph_phase(model, eng, state, frames, labels,
+                                    ("read_kernel", "combine_kernel",
+                                     "count_kernel"))}
+    del eng, state, labels
+    torch.cuda.empty_cache()
     agree, cpu32 = small_agreement_phase(model)
     check(agree > 0.999, "card and CPU engines agree on > 99.9% of pixels")
-    full_bank_phase(eng, state)
-    del eng, state
-    torch.cuda.empty_cache()
+    agree_m2, cpu32_m2 = small_agreement_phase(model, memorize_every=2)
+    check(agree_m2 > 0.999, "memorize_every=2: card and CPU engines agree "
+          "on > 99.9% of pixels")
+    cc_timing = cc_phase(launches)
+    image = linknet_phase()
     errs16, timing16 = kernel_phase_bf16()
     model16 = bf16_model(model)
-    launches16, state16, eng16 = main_path_phase(
-        model16, ("bank_read_bf16", "bank_read_combine", "bank_count_bf16"))
+    bf16_kernels = ("bank_read_bf16", "bank_read_combine", "bank_count_bf16")
+    launches16, state16, eng16, frames, labels = main_path_phase(
+        model16, bf16_kernels)
     check(eng16.model.keyval_r4.conv.weight.dtype == torch.bfloat16 and
           eng16.model.keyval_r4.conv.bias.dtype == torch.float32,
           "the bf16 engine cast its conv kernels and kept its biases")
     check(all(p.dtype == torch.float32 for p in model.parameters()) and
           all(p.dtype == torch.float32 for p in model16.parameters()),
           "building the bf16 engine left the callers' float32 weights")
-    agree16, cpu16 = small_agreement_phase(model16)
+    steps["bfloat16"] = graph_phase(model16, eng16, state16, frames, labels,
+                                    ("read_bf16_kernel", "combine_kernel",
+                                     "count_bf16_kernel"))
+    del eng16, state16, labels
+    torch.cuda.empty_cache()
     # bf16 labels on this clip move with any change of rounding order (the
     # convolutions of cuDNN and of the CPU sum in other orders), so the
     # card's bf16 labels are held to the CPU's as closely as bf16 itself
     # keeps to float32 on the CPU, less 0.01
-    gap = float((cpu16 == cpu32).mean())
-    log("main", f"bf16 card vs CPU agreement {agree16:.6f}; bf16 vs float32 "
-        f"on the CPU {gap:.6f}; bar {gap - 0.01:.6f}")
-    check(agree16 >= gap - 0.01, "the bf16 card and CPU engines agree as "
-          "well as bf16 and float32 do on the CPU, less 0.01")
-    full_bank_phase(eng16, state16)
+    for every, cpu_f32 in ((1, cpu32), (2, cpu32_m2)):
+        agree16, cpu16 = small_agreement_phase(model16, memorize_every=every)
+        gap = float((cpu16 == cpu_f32).mean())
+        log("main", f"bf16, memorize_every {every}: card vs CPU agreement "
+            f"{agree16:.6f}; bf16 vs float32 on the CPU {gap:.6f}; bar "
+            f"{gap - 0.01:.6f}")
+        check(agree16 >= gap - 0.01, "the bf16 card and CPU engines agree "
+              "as well as bf16 and float32 do on the CPU, less 0.01")
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
+    kernels.append(cc_row(cc_timing, launches, launches16))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "steps": steps, "image": image}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

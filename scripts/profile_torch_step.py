@@ -5,28 +5,34 @@ card.
 Drives the port's main path (trained AFB-URR, 1080p synthetic frames at
 the 480 operating point, two objects, 250,000-feature budget) in the
 compute dtype ``--dtype`` (float32, or bfloat16: the model and the bank in
-bf16, the bf16 read and count kernels) and reports,
-for a bank at the main path's occupancy and for a full bank (98,304 slots
-per object):
+bf16, the bf16 read and count kernels), with the eager step and with the
+step replayed as a CUDA graph (``--mode``), and reports, for a bank at the
+main path's occupancy and for a full bank (98,304 slots per object):
 
-- per-stage milliseconds of a step, each stage synchronised on both sides
-  (host clock; the syncs add to these steps' time): query encode, bank
-  read (read, combine and count kernels), decode, usage, memorize, bank
-  update, the device largest-CC cleanup, and the rest (normalise, resizes,
-  packing);
+- eager only: per-stage milliseconds of a step, each stage synchronised on
+  both sides (host clock; the syncs add to these steps' time): query
+  encode, bank read (read, combine and count kernels), decode, usage,
+  memorize, bank update, the device largest-CC cleanup, and the rest
+  (normalise, resizes, packing);
 - the unsynchronised step time: the wall time of a run of steps with no
-  synchronisation but the engine's own, timed with CUDA events at its two
-  ends;
-- from ``torch.profiler`` over a further run of unsynchronised steps:
-  device time by kernel group. The device's idle share is one minus that
-  busy time per step over the unsynchronised step time. The profiler's own
-  host overhead stretches its window, whose wall time is reported apart.
+  synchronisation, timed with CUDA events at its two ends;
+- from ``torch.profiler`` over the same steps once more: device time by
+  kernel group and by each of the port's kernels. The device's idle share
+  is one minus that busy time per step over the unsynchronised step time.
+
+Every window starts from the same bank (restored in place) with an exact
+occupancy bound that is not refreshed inside the window, so the graph
+engine meets the same graph keys in every window: a warm-up window runs
+each new key eagerly, a second captures it, and the measured windows only
+replay. (Without the refresh the bound grows by every feature a frame
+adds, merged ones too, so a window may visit a chunk more in the match
+than the engine would.)
 
 Run from the repository root on a GPU machine:
 
-    python3 scripts/profile_torch_step.py [--dtype bfloat16]
+    python3 scripts/profile_torch_step.py [--dtype bfloat16] [--mode graph]
 
-Prints one JSON line per bank state.
+Prints one JSON line per mode and bank state.
 """
 
 import argparse
@@ -65,8 +71,18 @@ def _timed(fn, name, acc):
     return wrapper
 
 
+OUR_KERNELS = ("read_bf16_kernel", "count_bf16_kernel", "read_kernel",
+               "combine_kernel", "count_kernel")
+CC_KERNEL = re.compile(r"(?<![a-z])cc_(init|merge|compress|argmax|keep)"
+                       r"_kernel")
+BANK = ("keys", "values", "valid", "birth", "usage", "occ", "peak_n",
+        "replace_n")
+
+
 def _group(name):
     n = name.lower()
+    if CC_KERNEL.search(n):        # csrc/cc.cu
+        return "largest_cc_kernel"
     # csrc/bank_read*.cu: the reads and the combine, then the counts (no
     # letter before the name, so not thread_kernel; before "gemm"'s sm90)
     if re.search(r"(?<![a-z])(read(_bf16)?|combine)_kernel", n):
@@ -89,13 +105,13 @@ def stage_breakdown(eng, state, frames, first_idx):
     acc = defaultdict(list)
     model, fb = eng.model, eng.fb
     saved = (model.encode_query, model.decode_with_memory, model.memorize,
-             fb.record_usage, fb.update, afb_urr.bank_attention_read,
+             fb.record_usage, fb.update_device, afb_urr.bank_attention_read,
              video_seg.device_largest_cc)
     model.encode_query = _timed(model.encode_query, "query_encode", acc)
     model.decode_with_memory = _timed(model.decode_with_memory, "decode", acc)
     model.memorize = _timed(model.memorize, "memorize", acc)
     fb.record_usage = _timed(fb.record_usage, "usage", acc)
-    fb.update = _timed(fb.update, "bank_update", acc)
+    fb.update_device = _timed(fb.update_device, "bank_update", acc)
     afb_urr.bank_attention_read = _timed(afb_urr.bank_attention_read,
                                          "bank_read", acc)
     video_seg.device_largest_cc = _timed(video_seg.device_largest_cc,
@@ -109,11 +125,11 @@ def stage_breakdown(eng, state, frames, first_idx):
             acc["step"].append(1e3 * (time.perf_counter() - t))
     finally:
         (model.encode_query, model.decode_with_memory, model.memorize,
-         fb.record_usage, fb.update, afb_urr.bank_attention_read,
+         fb.record_usage, fb.update_device, afb_urr.bank_attention_read,
          video_seg.device_largest_cc) = saved
         for name in ("encode_query", "decode_with_memory", "memorize"):
             model.__dict__.pop(name, None)
-        for name in ("record_usage", "update"):
+        for name in ("record_usage", "update_device"):
             fb.__dict__.pop(name, None)
     med = {k: float(np.median(v)) for k, v in acc.items()}
     med["rest"] = med["step"] - sum(v for k, v in med.items() if k != "step")
@@ -121,8 +137,8 @@ def stage_breakdown(eng, state, frames, first_idx):
 
 
 def unsynced_steps(eng, state, frames, first_idx):
-    """Milliseconds per step over ``frames`` with no synchronisation but
-    the engine's own, from CUDA events at the run's two ends."""
+    """Milliseconds per step over ``frames`` with no synchronisation, from
+    CUDA events at the run's two ends."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -135,35 +151,68 @@ def unsynced_steps(eng, state, frames, first_idx):
 
 
 def device_profile(eng, state, frames, first_idx):
-    """Device kernel time by group over ``frames`` (after one profiled
-    warm-up step, so that the profiler's own start-up is not in the
-    window), and the window's own wall time per step."""
+    """Device kernel time by group and by the port's kernels over
+    ``frames``, and the profiled window's own wall time per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):
-        state, _ = eng.step(state, frames[0], first_idx)
-        torch.cuda.synchronize()
-    frames = frames[1:]
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=acts) as prof:
         for i, f in enumerate(frames):
-            state, lab = eng.step(state, f, first_idx + 1 + i)
+            state, lab = eng.step(state, f, first_idx + i)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t)
-    groups = defaultdict(float)
+    groups, kernels = defaultdict(float), defaultdict(float)
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:   # kernels only, once each
             continue
-        groups[_group(evt.key)] += evt.self_device_time_total / 1e3
+        ms = evt.self_device_time_total / 1e3
+        groups[_group(evt.key)] += ms
+        name = next((k for k in OUR_KERNELS if k in evt.key), None)
+        if CC_KERNEL.search(evt.key):
+            name = "largest_cc (5 kernels)"
+        if name is not None:
+            kernels[name] += ms
     busy = sum(groups.values())
     n = len(frames)
     return state, {
         "profiled_wall_ms_per_step": wall_ms / n,
         "device_ms_per_step": busy / n,
         "device_ms_per_step_by_group": {k: v / n for k, v in
-                                        sorted(groups.items())}}
+                                        sorted(groups.items())},
+        "kernel_ms_per_step": {k: v / n for k, v in sorted(kernels.items())}}
+
+
+def measure(eng, state, frames, mode):
+    """The windows of one mode on one bank state (see the module doc)."""
+    snap = {k: getattr(state, k).clone() for k in BANK}
+    state.occ_host.refresh = lambda occ: None
+
+    def restore():
+        for k in BANK:
+            getattr(state, k).copy_(snap[k])
+        state.occ_host.reset(state.occ)
+
+    for _ in range(2):                   # new keys: eager, then captured
+        restore()
+        unsynced_steps(eng, state, frames, 20)
+    captured = len(eng.graphs)
+    row = {}
+    if mode == "eager":
+        restore()
+        row["stage_ms_median"] = stage_breakdown(eng, state, frames, 20)[1]
+    restore()
+    step_ms = unsynced_steps(eng, state, frames, 20)[1]
+    restore()
+    prof = device_profile(eng, state, frames, 20)[1]
+    if len(eng.graphs) != captured:
+        raise RuntimeError("a measured window captured a graph")
+    del state.occ_host.refresh
+    row.update({"unsynced_step_ms": step_ms, **prof,
+                "device_idle_share": 1.0 - prof["device_ms_per_step"]
+                / step_ms, "graphs": len(eng.graphs)})
+    return row
 
 
 def main():
@@ -171,7 +220,11 @@ def main():
     parser.add_argument("--dtype", choices=("float32", "bfloat16"),
                         default="float32",
                         help="compute dtype of the model and the bank")
-    dtype = getattr(torch, parser.parse_args().dtype)
+    parser.add_argument("--mode", choices=("eager", "graph", "both"),
+                        default="both",
+                        help="the eager step, the graph replays, or both")
+    args = parser.parse_args()
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         print("profile_torch_step: CUDA is not available", file=sys.stderr)
         sys.exit(1)
@@ -184,36 +237,35 @@ def main():
     dev = torch.device("cuda")
     model = load_afb_urr(default_checkpoint("video"), device=dev,
                          dtype=dtype)
-    fb = FeatureBank(obj_n=2, memory_budget=250_000, dtype=dtype, device=dev)
-    eng = video_seg.VideoSegEngine(model, fb, downsample=480,
-                                   postprocess="device")
-    frames, mask0 = chip_smoke.synthetic_clip(1 + 3 + 3 * STEPS + 1, 1080,
-                                              1920, 0)
-    state = eng.bootstrap(frames[0], mask0)
-    for i, f in enumerate(frames[1:4]):          # warm-up
-        state, _ = eng.step(state, f, i + 1)
-    for bank in ("main_path", "full_bank"):
-        if bank == "full_bank":
-            g = torch.Generator(device=dev).manual_seed(2)
-            state.keys.normal_(generator=g)
-            state.values.normal_(generator=g)
-            state.valid.fill_(True)
-            state.usage.uniform_(0.0, 5.0, generator=g)
-            state.birth.zero_()
-            state.occ.fill_(state.capacity)
-        occ = state.occ.tolist()
-        state, stages = stage_breakdown(eng, state, frames[4:4 + STEPS], 20)
-        state, step_ms = unsynced_steps(eng, state,
-                                        frames[4 + STEPS:4 + 2 * STEPS], 30)
-        state, prof = device_profile(eng, state,
-                                     frames[4 + 2 * STEPS:], 40)
-        row = {"bank": bank, "dtype": str(dtype), "occ_at_start": occ,
-               "card": smi,
-               "weights": "trained", "steps": STEPS,
-               "stage_ms_median": stages,
-               "unsynced_step_ms": step_ms, **prof,
-               "device_idle_share": 1.0 - prof["device_ms_per_step"] / step_ms}
-        print(json.dumps(row), flush=True)
+    frames, mask0 = chip_smoke.synthetic_clip(1 + 3 + STEPS, 1080, 1920, 0)
+    modes = ("eager", "graph") if args.mode == "both" else (args.mode,)
+    for mode in modes:
+        fb = FeatureBank(obj_n=2, memory_budget=250_000, dtype=dtype,
+                         device=dev)
+        eng = video_seg.VideoSegEngine(model, fb, downsample=480,
+                                       postprocess="device",
+                                       cuda_graph=mode == "graph")
+        state = eng.bootstrap(frames[0], mask0)
+        for i, f in enumerate(frames[1:4]):          # warm-up
+            state, _ = eng.step(state, f, i + 1)
+        for bank in ("main_path", "full_bank"):
+            if bank == "full_bank":
+                g = torch.Generator(device=dev).manual_seed(2)
+                state.keys.normal_(generator=g)
+                state.values.normal_(generator=g)
+                state.valid.fill_(True)
+                state.usage.uniform_(0.0, 5.0, generator=g)
+                state.birth.zero_()
+                state.occ.fill_(state.capacity)
+                state.occ_host.reset(state.occ)
+            occ = state.occ.tolist()
+            row = {"mode": mode, "bank": bank, "dtype": str(dtype),
+                   "occ_at_start": occ, "card": smi, "weights": "trained",
+                   "steps": STEPS,
+                   **measure(eng, state, frames[4:], mode)}
+            print(json.dumps(row), flush=True)
+        del eng, state, fb
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

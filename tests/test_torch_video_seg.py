@@ -6,7 +6,8 @@
 - Trained weights (mirror of tests/test_demo_e2e.py's lake clip): IoU
   >= 0.75 against the ground truth on every frame, and agreement > 0.97
   with tests/golden/demo_lake_golden.npz, which the JAX engine produced.
-- The CLI runner on a small frame directory.
+- The CLI runner on a small frame directory (the image model makes a
+  missing first mask: tests/test_torch_image_seg.py).
 """
 
 import os
@@ -118,9 +119,12 @@ def test_cli_runner_writes_masks(tmp_path):
         Image.fromarray((f * 255).astype(np.uint8)).save(src / f"{i}.png")
     torch.manual_seed(0)
     model = AFBURR().eval()
-    with pytest.raises(FileNotFoundError, match="image-segmentation"):
+    # a missing first mask is made by the image model: here from a
+    # checkpoint that does not exist
+    with pytest.raises(FileNotFoundError, match="image checkpoint"):
         run_video_segmentation(str(src), "clip", str(tmp_path / "out"),
-                               model=model, device="cpu")
+                               model=model, device="cpu",
+                               image_model_path=str(tmp_path / "no.npz"))
     first = tmp_path / "mask0.png"
     save_seg_mask(mask0, str(first))
     out = run_video_segmentation(str(src), "clip", str(tmp_path / "out"),

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's AFB-URR variables -> the port's
-``state_dict``.
+"""Weight bridge: the JAX package's AFB-URR (and, at the end, LinkNet)
+variables -> the port's ``state_dict``.
 
 Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
 the Flax variables themselves, as numpy), ``params/...`` and
@@ -80,6 +80,50 @@ def convert_afb_urr_variables(variables: Dict[str, Any]
         else:
             raise KeyError(f"unexpected Flax array {key}")
 
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+
+
+def convert_linknet_variables(variables: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's TPU-first ``LinkNet`` variables (EfficientNet-B4
+    encoder, flat npz of the bundled image checkpoint) -> a ``state_dict``
+    for :class:`vfloodnet_tpu_torch.models.linknet.LinkNet`.
+
+    Paths map one to one (``/`` -> ``.``; the encoder's blocks live under
+    ``encoder.blocks``); conv kernels go from HWIO to OIHW (a depthwise
+    kernel [k, k, 1, C] becomes [C, 1, k, k]); FrozenBN folds ``scale`` and
+    the running ``var`` into ``weight = scale / sqrt(var + 1e-5)``. Every
+    Flax array is used exactly once; a key left over raises."""
+    flat = flatten(variables)
+    out: Dict[str, np.ndarray] = {}
+    used = set()
+    for key in sorted(flat):
+        if not key.startswith("params/"):
+            continue
+        path, leaf = key[len("params/"):].rsplit("/", 1)
+        port = path.replace("/", ".")
+        if port.startswith("encoder.stage"):
+            port = "encoder.blocks." + port[len("encoder."):]
+        arr = np.asarray(flat[key], np.float32)
+        used.add(key)
+        if leaf == "kernel":
+            out[port + ".weight"] = _oihw(arr)
+        elif leaf == "bias":
+            out[port + ".bias"] = arr
+        elif leaf == "scale":          # FrozenBN
+            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
+            out[port + ".weight"] = arr * np.reciprocal(
+                np.sqrt(var + np.float32(BN_EPS)))
+            out[port + ".mean"] = np.asarray(
+                flat[f"batch_stats/{path}/mean"], np.float32)
+            used.update((f"batch_stats/{path}/var",
+                         f"batch_stats/{path}/mean"))
+        else:
+            raise KeyError(f"unexpected Flax array {key}")
     left = sorted(set(flat) - used)
     if left:
         raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")

@@ -12,21 +12,78 @@ for two objects), rounded up to a multiple of 128 and, above one occupancy
 chunk, down to a multiple of it: 98,304 slots per object at the default
 budget of 250,000 with two objects.
 
-The transition methods update the state's tensors in place and return it.
+The transition methods update the state's tensors in place (so a CUDA
+graph that captured them keeps reading the live bank) and return it. None
+of them waits for the host: ``occ`` stays on the device, and the host keeps
+an upper bound of it (:class:`OccupancyBound`) that decides how many chunks
+the match visits and whether LFU victims are selected.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.device import resolve_device
-from ..ops.bank_update import OCC_CHUNK, bank_merge_append
+from ..ops.bank_update import (OCC_CHUNK, bank_merge_append, device_scalar,
+                               lfu_victims, match_chunks, scatter_rows)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class OccupancyBound:
+    """A host upper bound of every object's occupancy, kept without a sync.
+
+    An update of M features per object raises occupancy by at most M, so
+    :meth:`grow` adds M. After each update the device's ``occ`` is copied
+    into pinned memory behind an event; once a later call finds that event
+    complete (a non-blocking query), the bound drops to the copied value
+    plus what was grown since the copy. A loose bound only makes the match
+    visit chunks of invalid slots and select victims that are not used: the
+    results are the same. On a CPU bank the bound is read exactly.
+    """
+
+    def __init__(self, bound: int, capacity: int):
+        self.capacity = capacity
+        self.bound = min(int(bound), capacity)
+        self._host: Optional[torch.Tensor] = None   # pinned copy of occ
+        self._event = None
+        self._pending = False    # a copy is in flight behind _event
+        self._since = 0          # grown since that copy was enqueued
+
+    def grow(self, m: int) -> None:
+        self.bound = min(self.bound + int(m), self.capacity)
+        self._since += int(m)
+
+    def refresh(self, occ: torch.Tensor) -> None:
+        """Tighten the bound from the last copy of ``occ`` if it has
+        landed, and start the next copy."""
+        if not occ.is_cuda:
+            self.bound = int(occ.max())
+            return
+        if self._pending:
+            if not self._event.query():
+                return
+            self.bound = min(self.bound, int(self._host.max()) + self._since)
+        if self._host is None:
+            self._host = torch.empty(occ.shape, dtype=occ.dtype,
+                                     pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._host.copy_(occ, non_blocking=True)
+        self._event.record()
+        self._pending = True
+        self._since = 0
+
+    def reset(self, occ: torch.Tensor) -> None:
+        """Set the bound to ``occ`` exactly (a host sync), after ``occ``
+        was edited from outside the transition methods."""
+        self.bound = int(occ.max())
+        self._pending = False
+        self._since = 0
 
 
 @dataclasses.dataclass
@@ -39,6 +96,8 @@ class FeatureBankState:
     peak_n: torch.Tensor     # [obj_n] i32, most occupied slots seen
     replace_n: torch.Tensor  # [obj_n] i32, evictions so far
     occ: torch.Tensor        # [obj_n] i32, occupancy of the dense prefix
+    # host upper bound of occ (a FeatureBank makes one with each state)
+    occ_host: Optional[OccupancyBound] = None
 
     @property
     def obj_n(self) -> int:
@@ -88,7 +147,8 @@ class FeatureBank:
             usage=torch.zeros((o, cap), **f32),
             peak_n=torch.zeros((o,), **i32),
             replace_n=torch.zeros((o,), **i32),
-            occ=torch.zeros((o,), **i32))
+            occ=torch.zeros((o,), **i32),
+            occ_host=OccupancyBound(0, cap))
 
     def init_bank(self, keys: torch.Tensor, values: torch.Tensor,
                   frame_idx: float = 0.0) -> FeatureBankState:
@@ -105,68 +165,93 @@ class FeatureBank:
         state.birth[:, :p] = frame_idx
         state.peak_n.fill_(p)
         state.occ.fill_(p)
+        state.occ_host = OccupancyBound(p, self.class_budget)
         return state
 
     def append(self, state: FeatureBankState, keys: torch.Tensor,
-               values: torch.Tensor, frame_idx: float = 0.0
-               ) -> FeatureBankState:
+               values: torch.Tensor, frame_idx=0.0) -> FeatureBankState:
         """Insert extra features unconditionally with usage 20 (reference
         FeatureBank.append, :38-51): they extend the prefix, overwriting the
         lowest-LFU valid slots only when it is full."""
         n = state.capacity
         m = keys.shape[1]
         k = min(m, n)
-        rank = torch.arange(m, device=state.keys.device)
-        for o, occ in enumerate(state.occ.tolist()):
-            age = torch.clamp(frame_idx - state.birth[o], min=1.0)
+        dev = state.keys.device
+        fi = device_scalar(frame_idx, torch.float32, dev)
+        rank = torch.arange(m, device=dev)
+        for o in range(state.obj_n):
+            occ = state.occ[o]
+            age = torch.clamp(fi - state.birth[o], min=1.0)
             prio = torch.where(state.valid[o], state.usage[o] / age,
                                torch.full_like(age, 1e30))
-            victim_order = torch.sort(prio, stable=True).indices[:k]
-            victim = victim_order[torch.clamp(rank - (n - occ), 0, k - 1)]
+            victim = lfu_victims(prio, k)[torch.clamp(rank - (n - occ), 0,
+                                                      k - 1)]
             victim = torch.where(prio[victim] < 1e30, victim,
                                  torch.full_like(victim, n))
-            d = torch.where(rank < n - occ, occ + rank, victim)
-            rows = torch.nonzero(d < n).squeeze(1)
-            d = d[rows]
-            state.keys[o, d] = keys[o, rows].to(self.dtype)
-            state.values[o, d] = values[o, rows].to(self.dtype)
-            state.birth[o, d] = float(frame_idx)
-            state.usage[o, d] = 20.0   # FeatureBank.py:46
-            state.valid[o, d] = True
+            dest = torch.where(rank < n - occ, occ + rank, victim)
+            scatter_rows(dest, dest < n, (
+                (state.keys[o], keys[o]), (state.values[o], values[o]),
+                (state.birth[o], fi), (state.usage[o], 20.0),  # :46
+                (state.valid[o], True)))
         state.occ.clamp_(max=n - m).add_(m)
         torch.maximum(state.peak_n, state.occ, out=state.peak_n)
+        self.note_update(state, m)
         return state
 
     def record_usage(self, state: FeatureBankState,
                      usage_cnt: torch.Tensor) -> FeatureBankState:
         """Add the read's usage counts, ``log(1 + cnt)`` (reference
-        AFB_URR.py:174)."""
+        AFB_URR.py:174), in place."""
         usage = torch.clamp(state.usage + torch.log1p(usage_cnt), 0.0, 1e5)
-        state.usage = torch.where(state.valid, usage,
-                                  torch.zeros_like(usage))
+        state.usage.copy_(torch.where(state.valid, usage,
+                                      torch.zeros_like(usage)))
         return state
 
-    def update(self, state: FeatureBankState, new_keys: torch.Tensor,
-               new_values: torch.Tensor, frame_idx: float
-               ) -> FeatureBankState:
-        """Merge, append or evict one frame of features, new_keys [obj_n,
-        P, dk] and new_values [obj_n, P, dv] (FeatureBank.py:53-115)."""
-        occ = state.occ.tolist()
-        occ_bound = max(occ)
+    def plan(self, state: FeatureBankState, m: int) -> Tuple[int, bool]:
+        """What the state's occupancy bound decides for an update of ``m``
+        features per object: (chunks the match visits, whether LFU victims
+        are selected). Two updates with the same plan run the same work."""
+        bound = state.occ_host.bound
+        return (match_chunks(state.capacity, bound),
+                bound + m > state.capacity)
+
+    def note_update(self, state: FeatureBankState, m: int) -> None:
+        """Host bookkeeping after an update of ``m`` features per object
+        was enqueued: grow the occupancy bound and refresh it."""
+        state.occ_host.grow(m)
+        state.occ_host.refresh(state.occ)
+
+    def update_device(self, state: FeatureBankState, new_keys: torch.Tensor,
+                      new_values: torch.Tensor, frame_idx,
+                      occ_bound: int) -> FeatureBankState:
+        """The device part of :meth:`update`, for the host occupancy bound
+        ``occ_bound``: stream work only, so it can be captured in a CUDA
+        graph (whose replays then hold for every bound of the same
+        :meth:`plan`). The caller calls :meth:`note_update` after it has
+        run or been replayed."""
+        fi = device_scalar(frame_idx, torch.float32, state.keys.device)
         occ_new, evicted = [], []
         for o in range(state.obj_n):
             occ_o, stats = bank_merge_append(
                 state.keys[o], state.values[o], state.valid[o],
                 state.birth[o], state.usage[o],
                 new_keys[o].to(self.dtype), new_values[o].to(self.dtype),
-                float(frame_idx), occ[o], occ_bound,
-                update_rate=self.update_rate, thres_close=self.thres_close)
+                fi, state.occ[o], occ_bound, update_rate=self.update_rate,
+                thres_close=self.thres_close)
             occ_new.append(occ_o)
             evicted.append(stats.evicted_n)
-        state.occ.copy_(torch.tensor(occ_new, dtype=torch.int32))
-        state.replace_n.add_(torch.tensor(evicted, dtype=torch.int32,
-                                          device=state.occ.device))
+        state.occ.copy_(torch.stack(occ_new))
+        state.replace_n.add_(torch.stack(evicted))
         torch.maximum(state.peak_n, state.occ, out=state.peak_n)
+        return state
+
+    def update(self, state: FeatureBankState, new_keys: torch.Tensor,
+               new_values: torch.Tensor, frame_idx) -> FeatureBankState:
+        """Merge, append or evict one frame of features, new_keys [obj_n,
+        P, dk] and new_values [obj_n, P, dv] (FeatureBank.py:53-115)."""
+        self.update_device(state, new_keys, new_values, frame_idx,
+                           state.occ_host.bound)
+        self.note_update(state, new_keys.shape[1])
         return state
 
     def report(self, state: FeatureBankState) -> str:

@@ -1,5 +1,7 @@
 from .afb_urr import AFBURR, Decoder, EncoderM, EncoderQ, KeyValue
+from .efficientnet import EfficientNetFeatures
+from .linknet import LinkNet
 from .resnet import FrozenBN, ResNet50Backbone
 
 __all__ = ["AFBURR", "Decoder", "EncoderM", "EncoderQ", "KeyValue",
-           "FrozenBN", "ResNet50Backbone"]
+           "EfficientNetFeatures", "LinkNet", "FrozenBN", "ResNet50Backbone"]

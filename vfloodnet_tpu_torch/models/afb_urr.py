@@ -21,6 +21,7 @@ as float32, and the read casts them to the bank's dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -36,12 +37,18 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(device: torch.device):
+    """(mean, std) [1, 3, 1, 1] float32 on ``device``, uploaded once: the
+    step makes no host-to-device copy of its own."""
+    return tuple(torch.tensor(v, dtype=torch.float32)[None, :, None, None]
+                 .to(device) for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
 def _normalize(frame: torch.Tensor) -> torch.Tensor:
     """ImageNet normalisation in float32."""
-    frame = frame.float()
-    mean = frame.new_tensor(IMAGENET_MEAN)[None, :, None, None]
-    std = frame.new_tensor(IMAGENET_STD)[None, :, None, None]
-    return (frame - mean) / std
+    mean, std = _imagenet_stats(frame.device)
+    return (frame.float() - mean) / std
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Build, load and launch the bank read, combine and count kernels:
 float32 (``csrc/bank_read.cu``: read, combine, count) and bf16
 (``csrc/bank_read_bf16.cu``: read, count; its partials go through the
-float32 combine).
+float32 combine). :func:`build` also builds the largest-CC library
+(``csrc/cc.cu``) that :mod:`.cc_cuda` loads.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``, at the first launch in a process (never
 at import: the CPU tests import this module where there is no ``nvcc``).
-The two ``nvcc`` runs start together. The libraries go to
+The ``nvcc`` runs start together. The libraries go to
 ``vfloodnet_tpu_torch/_build/``, named by the hash of every source and
 header under ``csrc/`` and of the flags, so an edited file is rebuilt and
 an unchanged tree is reused. A build writes to a private temporary name
@@ -35,8 +36,10 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-# library name -> its source under CSRC
-SOURCES = {"bank_read": "bank_read.cu", "bank_read_bf16": "bank_read_bf16.cu"}
+# library name -> its source under CSRC (``cc`` is the largest-CC kernel
+# of :mod:`.cc_cuda`, built here with the others)
+SOURCES = {"bank_read": "bank_read.cu", "bank_read_bf16": "bank_read_bf16.cu",
+           "cc": "cc.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

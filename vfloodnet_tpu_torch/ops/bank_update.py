@@ -1,5 +1,6 @@
 """Feature-bank update: cosine match -> merge / append / LFU evict
-(counterpart of ``vfloodnet_tpu.ops.bank_update``, dense-prefix form).
+(counterpart of ``vfloodnet_tpu.ops.bank_update``, its static-shape,
+dense-prefix form).
 
 One object's bank is a fixed-capacity slot array whose valid slots are
 packed at the front, ``[0, occ)``. For each new feature of the frame:
@@ -13,10 +14,27 @@ packed at the front, ``[0, occ)``. For each new feature of the frame:
    full it overwrites the slot with the lowest usage / age (LFU), never one
    merged into this frame.
 
+Every shape is static and nothing waits for the host, so the update can be
+captured in a CUDA graph: the occupancy ``occ``, the counts and the frame
+index stay on the device, and the only host inputs are a bound on the
+occupancy (how many chunks the match visits and whether LFU victims are
+selected; a loose bound gives the same result, as in the JAX package).
 The bank tensors are updated in place (the JAX package returns new arrays;
-here that would copy the 0.5 GB bank every frame). Victims are taken in
-ascending LFU order with ties to the lower slot, the order of the JAX
-package's exact ``top_k`` branch.
+here that would copy the 0.5 GB bank every frame).
+
+- Merge means are taken over the incoming features only (no bank-sized
+  temporaries), as ``_sorted_group_means`` does, as one product of the
+  [M, M] same-slot matrix with the features: deterministic, unlike an
+  atomic ``index_add_``, so an eager step and a replayed graph write the
+  same bits.
+- LFU victims are ``torch.topk`` of the int64 key ``(float32 bits of prio)
+  << 32 | slot`` (monotone in prio, which is >= 0): ascending LFU with
+  ties to the lower slot, the order of the JAX package's exact ``top_k``,
+  so the victims equal its victims slot by slot.
+- Scatters have one row per feature. A dropped row repeats the first kept
+  row's write (the same slot and bits), or rewrites slot 0 with its own
+  value when no row is kept, so no boolean index or ``nonzero`` (both
+  wait for the host) is needed.
 
 A bf16 bank is matched and merged as the JAX package does it: the
 correlation is a bf16 product scaled in bf16 by float32 inverse slot norms,
@@ -26,7 +44,7 @@ EMA in float32 and casts on the scatter.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -34,9 +52,25 @@ OCC_CHUNK = 8192
 
 
 class BankUpdateStats(NamedTuple):
-    merged_n: int     # features merged into existing slots
-    appended_n: int   # features written to new slots
-    evicted_n: int    # previously valid slots overwritten
+    merged_n: torch.Tensor     # features merged into existing slots
+    appended_n: torch.Tensor   # features written to new slots
+    evicted_n: torch.Tensor    # previously valid slots overwritten
+
+
+def match_chunks(n: int, occ_bound: int) -> int:
+    """Chunks of the bank the match visits for an occupancy bound (a host
+    int): ``clip(ceil(occ_bound / c), 1, ceil(n / c))`` with ``c =
+    min(OCC_CHUNK, n)``, as the JAX package's occupancy-bounded loop."""
+    chunk = OCC_CHUNK if n > OCC_CHUNK else n
+    return min(max(-(-int(occ_bound) // chunk), 1), -(-n // chunk))
+
+
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` (a number or a 0-d tensor) as a 0-d tensor of ``dtype`` on
+    ``device``; a number is written by a fill, not copied from the host."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def _safe_normalize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -46,17 +80,15 @@ def _safe_normalize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _best_match(keys, valid, normed_new, occ_bound: int):
     """Best cosine match of each new feature among the valid slots ->
-    (best_corr [M], best_idx [M]); -2 and slot 0 when there is none. Banks
-    larger than one chunk are visited only up to the occupancy bound,
-    rounded up to whole chunks."""
+    (best_corr [M], best_idx [M]); -2 and slot 0 when there is none. Only
+    the :func:`match_chunks` of the host bound ``occ_bound`` are visited."""
     n = keys.shape[0]
     chunk = OCC_CHUNK if n > OCC_CHUNK else n
-    n_iter = min(max(-(-occ_bound // chunk), 1), -(-n // chunk))
     m = normed_new.shape[0]
     best_corr = torch.full((m,), -2.0, dtype=torch.float32,
                            device=keys.device)
     best_idx = torch.zeros((m,), dtype=torch.int64, device=keys.device)
-    for i in range(n_iter):
+    for i in range(match_chunks(n, occ_bound)):
         k_c = keys[i * chunk:(i + 1) * chunk]
         ok = valid[i * chunk:(i + 1) * chunk]
         mag = torch.linalg.vector_norm(k_c.float(), dim=1)
@@ -73,52 +105,106 @@ def _best_match(keys, valid, normed_new, occ_bound: int):
     return best_corr, best_idx
 
 
+def _group_means(datas: Sequence[torch.Tensor], idx: torch.Tensor,
+                 mask: torch.Tensor):
+    """Means of the rows of each [M, d] ``datas`` over the masked rows
+    that share their ``idx``, and one representative row per group (its
+    first) -> (means, rep [M] bool). A group's mean sits on every row of
+    the group; the sum is the product of the [M, M] same-group matrix with
+    the rows, in float32."""
+    m = idx.shape[0]
+    same = (idx[:, None] == idx[None, :]) & mask[:, None] & mask[None, :]
+    rows = torch.arange(m, device=idx.device)
+    earlier = (same & (rows[None, :] < rows[:, None])).any(dim=1)
+    rep = mask & ~earlier
+    weight = same.float()
+    count = weight.sum(dim=1, keepdim=True).clamp_min(1.0)
+    return [(weight @ d.float()) / count for d in datas], rep
+
+
+def scatter_rows(dest: torch.Tensor, keep: torch.Tensor, pairs) -> None:
+    """For each ``(bank [N, ...], rows)`` of ``pairs``: ``bank[dest[i]] =
+    rows[i]`` for the rows with ``keep[i]``; ``rows`` is [M, ...] or a
+    value for every row (a number or a 0-d tensor). The kept ``dest`` are
+    distinct. Every row writes: a dropped one repeats the first kept row
+    (the same slot and the same bits), or rewrites slot 0 with its own
+    value when no row is kept, so the result is that of the kept rows
+    alone, with static shapes and no host sync."""
+    any_keep = keep.any()
+    # [1] index tensors: indexing with a 0-d tensor would read it on the
+    # host
+    first = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    first_dest = dest.index_select(0, first)
+    d = torch.where(keep, dest, torch.where(any_keep, first_dest,
+                                            torch.zeros_like(first_dest)))
+    m = dest.shape[0]
+    for bank, rows in pairs:
+        if not torch.is_tensor(rows) or rows.ndim == 0:
+            rows = device_scalar(rows, bank.dtype, bank.device).expand(
+                (m,) + bank.shape[1:])
+        rows = rows.to(bank.dtype)
+        fill = torch.where(any_keep, rows.index_select(0, first), bank[:1])
+        k = keep.reshape((m,) + (1,) * (rows.ndim - 1))
+        bank.index_put_((d,), torch.where(k, rows, fill))
+
+
+def lfu_victims(prio: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` slots of lowest ``prio`` (>= 0) in ascending order, ties
+    to the lower slot: the victims of the JAX package's exact ``top_k``,
+    slot by slot."""
+    n = prio.shape[0]
+    bits = (prio + 0.0).view(torch.int32).to(torch.int64)   # -0 -> +0
+    key = (bits << 32) | torch.arange(n, device=prio.device)
+    return torch.topk(key, k, largest=False, sorted=True).indices
+
+
 def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
                       valid: torch.Tensor, birth: torch.Tensor,
                       usage: torch.Tensor, new_keys: torch.Tensor,
-                      new_values: torch.Tensor, frame_idx: float,
-                      occ: int, occ_bound: int, update_rate: float = 0.1,
+                      new_values: torch.Tensor, frame_idx, occ,
+                      occ_bound: int, update_rate: float = 0.1,
                       thres_close: float = 0.95
-                      ) -> Tuple[int, BankUpdateStats]:
+                      ) -> Tuple[torch.Tensor, BankUpdateStats]:
     """One frame's update of one object's bank, in place.
 
     Args:
       keys [N, dk], values [N, dv], valid [N] bool, birth [N] f32 (frame a
       slot was written), usage [N] f32 (accumulated log usage): the bank,
       modified in place. new_keys [M, dk], new_values [M, dv]: the frame's
-      features. occ: this object's occupancy (valid slots are [0, occ)).
-      occ_bound: the largest occupancy over all objects; it bounds the match
-      and gates the eviction exactly as in the JAX package.
+      features. frame_idx: the frame index, a number or a 0-d tensor on the
+      bank's device. occ: this object's occupancy (valid slots are [0,
+      occ)), a 0-d int32 tensor on the bank's device or an int.
+      occ_bound: a host int at least the largest occupancy over all
+      objects; it bounds the match (:func:`match_chunks`) and opens the
+      LFU selection when ``occ_bound + M > N``, as the JAX package's gate.
 
-    Returns: (new occupancy, stats).
+    Returns: (new occupancy, stats), 0-d int32 tensors on the device.
     """
     n = keys.shape[0]
     m = new_keys.shape[0]
+    dev = keys.device
+    occ = device_scalar(occ, torch.int32, dev)
+    frame_idx = device_scalar(frame_idx, torch.float32, dev)
     normed_new_k, _ = _safe_normalize(new_keys)
     normed_new_v, _ = _safe_normalize(new_values)
     best_corr, best_idx = _best_match(keys, valid, normed_new_k, occ_bound)
     merge_mask = best_corr > thres_close
 
     # Merge: mean of the features matched to each slot, EMA'd into it.
-    protected = torch.zeros((n,), dtype=torch.bool, device=keys.device)
-    merged_n = int(merge_mask.sum())
-    if merged_n:
-        slots, group = torch.unique(best_idx[merge_mask], return_inverse=True)
-        count = torch.bincount(group, minlength=slots.numel())[:, None]
-        r = update_rate
-        for bank, normed in ((keys, normed_new_k), (values, normed_new_v)):
-            mean = torch.zeros((slots.numel(), normed.shape[1]),
-                               dtype=torch.float32, device=normed.device)
-            mean.index_add_(0, group, normed[merge_mask].float())
-            mean = mean / count.clamp_min(1)
-            old_dir, old_mag = _safe_normalize(bank[slots].float())
-            bank[slots] = (old_mag * ((1.0 - r) * old_dir + r * mean)).to(
-                bank.dtype)
-        protected[slots] = True
+    (k_mean, v_mean), rep = _group_means((normed_new_k, normed_new_v),
+                                         best_idx, merge_mask)
+    r = update_rate
+    merged = []
+    for bank, mean in ((keys, k_mean), (values, v_mean)):
+        old_dir, old_mag = _safe_normalize(bank[best_idx].float())
+        merged.append(old_mag * ((1.0 - r) * old_dir + r * mean))
+    protected = torch.zeros((n,), dtype=torch.bool, device=dev)
+    scatter_rows(best_idx, rep, ((keys, merged[0]), (values, merged[1]),
+                                 (protected, True)))
 
     # Append at the prefix tail; LFU victims once the bank is full.
     append_mask = ~merge_mask
-    appended_n = m - merged_n
+    appended_n = append_mask.sum().to(torch.int32)
     rank = torch.cumsum(append_mask.to(torch.int64), 0) - 1
     free_n = n - occ
     k = min(m, n)
@@ -126,23 +212,19 @@ def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
         lfu = usage / torch.clamp(frame_idx - birth, min=1.0)
         prio = torch.where(valid & ~protected, lfu,
                            torch.full_like(lfu, 1e30))
-        victim_order = torch.sort(prio, stable=True).indices[:k]
-        victim = victim_order[torch.clamp(rank - free_n, 0, k - 1)]
+        victim = lfu_victims(prio, k)[torch.clamp(rank - free_n, 0, k - 1)]
         victim = torch.where(prio[victim] < 1e30, victim,
                              torch.full_like(victim, n))
     else:
         victim = torch.full_like(rank, n)
     dest = torch.where(rank < free_n, occ + rank, victim)
-    dest = torch.where(append_mask, dest, torch.full_like(dest, n))
-    rows = torch.nonzero(dest < n).squeeze(1)
-    d = dest[rows]
-    keys[d] = new_keys[rows].to(keys.dtype)
-    values[d] = new_values[rows].to(values.dtype)
-    birth[d] = float(frame_idx)
-    usage[d] = 0.0
-    valid[d] = True
+    keep = append_mask & (dest < n)
+    scatter_rows(dest, keep, ((keys, new_keys), (values, new_values),
+                              (birth, frame_idx), (usage, 0.0),
+                              (valid, True)))
     usage.clamp_(0.0, 1e5)   # reference FeatureBank.py:115
 
-    evicted_n = min(max(appended_n - free_n, 0), occ)
-    occ_new = min(occ + appended_n, n)
-    return occ_new, BankUpdateStats(merged_n, appended_n, evicted_n)
+    evicted_n = torch.minimum(torch.clamp(appended_n - free_n, min=0), occ)
+    occ_new = torch.clamp(occ + appended_n, max=n)
+    return occ_new, BankUpdateStats(merge_mask.sum().to(torch.int32),
+                                    appended_n, evicted_n.to(torch.int32))

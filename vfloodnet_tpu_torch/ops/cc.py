@@ -6,12 +6,20 @@ each label to its own label's label (pointer jumping), until nothing
 changes. The fixpoint labels every component by its smallest raster index,
 as the JAX op does, so the kept component (ties broken towards the smaller
 label) is the same.
+
+That loop is the plain version: it checks for its fixpoint on the host.
+:func:`largest_connected_component` takes it for a CPU tensor only; a CUDA
+tensor goes to the union-find kernel of ``csrc/cc.cu`` (:mod:`.cc_cuda`),
+which keeps the same labels and tie rule in five launches and no host
+sync.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import cc_cuda
 
 _ROUNDS_PER_CHECK = 4
 
@@ -46,12 +54,25 @@ def connected_components(mask: torch.Tensor) -> torch.Tensor:
             return torch.where(fg, labels, -1)
 
 
-def largest_connected_component(mask: torch.Tensor) -> torch.Tensor:
-    """Keep only the largest 8-connected foreground component of a binary
-    [H, W] mask; uint8 {0, 1}."""
+def largest_cc_plain(mask: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel: the largest 8-connected foreground
+    component of each binary map of ``mask`` [..., H, W]; uint8 {0, 1}."""
+    if mask.ndim > 2:
+        flat = mask.reshape((-1,) + mask.shape[-2:])
+        return torch.stack([largest_cc_plain(m) for m in flat]).reshape(
+            mask.shape)
     labels = connected_components(mask)
     fg = labels >= 0
     if not bool(fg.any()):
         return torch.zeros_like(mask, dtype=torch.uint8)
     sizes = torch.bincount(labels[fg], minlength=labels.numel())
     return (labels == torch.argmax(sizes)).to(torch.uint8)
+
+
+def largest_connected_component(mask: torch.Tensor) -> torch.Tensor:
+    """Keep only the largest 8-connected foreground component of each
+    binary map of ``mask`` [..., H, W]; uint8 {0, 1}. The kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    if mask.is_cuda:
+        return cc_cuda.largest_cc(mask.to(torch.uint8))
+    return largest_cc_plain(mask)

@@ -10,11 +10,21 @@
   largest-CC cleanup.
 - ``nearest_torch``: floor indexing, ``src = floor(i * (in / out))`` in
   float64, as the JAX package computes it. Used for the first-mask downsize.
+- ``bilinear``: ``jax.image.resize``'s ``linear`` (half-pixel centres, the
+  triangle kernel, weights renormalised at the edges), with ``antialias``
+  widening the kernel by the downscale factor as JAX does (PIL's
+  semantics; the image model's input resize). Dense [out, in] weight
+  matrices built in numpy in float32, as JAX builds them, and contracted
+  in float32. Used by the image path.
 
 Both nearests gather with indices computed in numpy exactly as the JAX
 package computes them. ``F.interpolate``'s ``nearest-exact`` and ``nearest``
 round differently at some sizes (it multiplies by a float32 scale), so
 they are not used.
+
+Index and tap tensors are built once per (sizes, method, device) and kept
+on the device, so a resize inside the video step makes no host-to-device
+copy of its own (and can be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -41,6 +51,45 @@ def _nearest_index(n_in: int, n_out: int, method: str) -> np.ndarray:
             * np.float32(n_in) / np.float32(n_out)
         return np.minimum(np.floor(src).astype(np.int64), n_in - 1)
     return np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_taps(n_in: int, n_out: int, method: str, device: torch.device):
+    """:func:`_nearest_index` as an int64 tensor on ``device``, uploaded
+    once per (sizes, method, device)."""
+    return torch.from_numpy(_nearest_index(n_in, n_out, method)).to(device)
+
+
+def _linear_matrix(in_size: int, out_size: int, antialias: bool
+                   ) -> np.ndarray:
+    """Dense [out, in] float32 weights of ``jax.image.resize``'s ``linear``
+    (``compute_weight_mat`` with the triangle kernel), in the float32
+    arithmetic XLA compiles it to: half-pixel sample positions, the kernel widened by the
+    downscale factor under ``antialias``, each output's weights divided by
+    their sum, and outputs whose sample lies outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    # XLA fuses (i + 0.5) * inv_scale - 0.5 into one FMA inside jit: the
+    # exact product less 0.5, rounded once
+    sample = ((np.arange(out_size, dtype=f32) + f32(0.5)).astype(np.float64)
+              * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) \
+        / f32(kernel_scale)
+    w = np.maximum(f32(0), f32(1) - np.abs(x)).astype(f32)   # [in, out]
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0)).T.astype(f32)
+
+
+@functools.lru_cache(maxsize=32)
+def _linear_taps(in_size: int, out_size: int, antialias: bool,
+                 device: torch.device):
+    """The [in, out] transpose of :func:`_linear_matrix` on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(
+        _linear_matrix(in_size, out_size, antialias).T)).to(device)
 
 
 def _cubic_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -87,20 +136,40 @@ def _bicubic_bf16(x: torch.Tensor, out_hw, h_ax: int, w_ax: int):
     return x
 
 
+def _bilinear(x: torch.Tensor, out_hw, h_ax: int, w_ax: int,
+              antialias: bool) -> torch.Tensor:
+    """Separable ``jax.image.resize`` linear in float32: the H pass, then
+    the W pass; the result in ``x``'s dtype."""
+    y = x.float()
+    for ax, n_out in ((h_ax, out_hw[0]), (w_ax, out_hw[1])):
+        if y.shape[ax] == n_out:
+            continue
+        taps = _linear_taps(y.shape[ax], n_out, antialias, y.device)
+        y = (y.movedim(ax, -1) @ taps).movedim(-1, ax)
+    return y.to(x.dtype)
+
+
 def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
-           spatial_axes: Tuple[int, int] = (-3, -2)) -> torch.Tensor:
+           spatial_axes: Tuple[int, int] = (-3, -2),
+           antialias: bool = False) -> torch.Tensor:
     """Resize the two spatial axes of ``x`` (default NHWC) to ``out_hw``.
-    ``method`` in {bicubic, nearest, nearest_torch}."""
+    ``method`` in {bicubic, bilinear, nearest, nearest_torch};
+    ``antialias`` applies to ``bilinear`` only (the JAX package's bicubic
+    is torch's, without antialias)."""
     h_ax = spatial_axes[0] % x.ndim
     w_ax = spatial_axes[1] % x.ndim
     if method in ("nearest", "nearest_torch"):
         for ax, n_out in ((h_ax, out_hw[0]), (w_ax, out_hw[1])):
             if x.shape[ax] != n_out:
-                idx = _nearest_index(x.shape[ax], n_out, method)
-                x = x.index_select(ax, torch.from_numpy(idx).to(x.device))
+                x = x.index_select(ax, _nearest_taps(x.shape[ax], n_out,
+                                                     method, x.device))
         return x
+    if method == "bilinear":
+        return _bilinear(x, out_hw, h_ax, w_ax, antialias)
     if method != "bicubic":
         raise ValueError(f"unknown resize method {method!r}")
+    if antialias:
+        raise ValueError("antialias is ported for bilinear only")
     if tuple(x.shape[a] for a in (h_ax, w_ax)) == tuple(out_hw):
         return x
     if x.dtype == torch.bfloat16:

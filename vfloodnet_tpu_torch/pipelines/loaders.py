@@ -9,8 +9,9 @@ from typing import Optional
 
 import torch
 
-from ..core import convert_afb_urr_variables, load_flat_npz, resolve_device
-from ..models import AFBURR
+from ..core import (convert_afb_urr_variables, convert_linknet_variables,
+                    load_flat_npz, resolve_device)
+from ..models import AFBURR, LinkNet
 
 _RECORDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "records", "checkpoints")
@@ -34,6 +35,26 @@ def load_afb_urr(model_path: Optional[str] = None, device="cuda",
     device = resolve_device(device)
     model = AFBURR(dtype=dtype)
     model.load_state_dict(convert_afb_urr_variables(load_flat_npz(model_path)))
+    return model.to(device).eval()
+
+
+def load_linknet(model_path: Optional[str] = None,
+                 device="cuda") -> LinkNet:
+    """The image model, the JAX package's TPU-first ``LinkNet``
+    (EfficientNet-B4), with weights from a flat ``.npz`` checkpoint
+    (default: the bundled trained one), on ``device``, in eval mode. A
+    missing file raises. The reference's pickled smp ``.pth`` (the JAX
+    package's ``LinkNetSMP`` route) is not ported."""
+    model_path = model_path or default_checkpoint("image")
+    if not model_path.endswith(".npz"):
+        raise ValueError(f"expected a flat .npz checkpoint, got "
+                         f"{model_path} (the smp .pth route is not ported)")
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"no image checkpoint at {model_path}")
+    device = resolve_device(device)
+    model = LinkNet()
+    model.load_state_dict(convert_linknet_variables(load_flat_npz(
+        model_path)))
     return model.to(device).eval()
 
 

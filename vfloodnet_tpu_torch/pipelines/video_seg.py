@@ -5,8 +5,10 @@ Bootstrap the feature bank from a first-frame mask, then per frame:
 normalise and bicubic-downsample, segment against the bank (the CUDA read
 and count kernels on the card), record usage, memorize, update the bank,
 bicubic-upsample the label to full size, clean it up to its largest
-connected component, and bit-pack it. The runner is synchronous: one frame
-at a time, no thread pools.
+connected component (the CUDA kernel of ``csrc/cc.cu`` on the card), and
+bit-pack it. On the card the step is one CUDA graph replay
+(:class:`VideoSegEngine`). The runner starts no thread pool: it enqueues
+frame t before it waits for frame t - 1's label.
 
 Run as ``python -m vfloodnet_tpu_torch.pipelines.video_seg --test-path
 FRAMES --test-name NAME`` (the flags of ``test_video_seg.py``).
@@ -18,7 +20,7 @@ import argparse
 import os
 import time
 from glob import glob
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ from .. import ops
 from ..core import resolve_device
 from ..memory import FeatureBank, FeatureBankState
 from ..models import AFBURR
+from ..ops import bank_read_cuda, cc_cuda
 from .loaders import cast_floating_params
 
 
@@ -112,6 +115,47 @@ def resolve_postprocess(postprocess, device) -> str:
     return postprocess
 
 
+class PendingLabel:
+    """A device label on its way to the host: the copy into pinned memory
+    is enqueued when this is made, and :meth:`result` waits for it alone
+    (the work enqueued after it keeps running)."""
+
+    def __init__(self, label: torch.Tensor, full_w: Optional[int],
+                 packed: bool):
+        self.full_w, self.packed = full_w, packed
+        self.event = None
+        if label.is_cuda:
+            self.host = torch.empty(label.shape, dtype=label.dtype,
+                                    pin_memory=True)
+            self.host.copy_(label, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = label
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        arr = self.host.numpy()
+        if self.packed and self.full_w is not None:
+            arr = unpack_bits(arr, self.full_w)
+        return arr
+
+
+class _CapturedStep:
+    """One step captured in a CUDA graph: its output buffer, the kernel
+    launches its capture recorded (each replay launches them again), and
+    how often it was replayed."""
+
+    def __init__(self, graph, label: torch.Tensor, launches: Dict[str, int]):
+        self.graph, self.label, self.launches = graph, label, launches
+        self.replays = 0
+
+
+def _kernel_launches() -> Dict[str, int]:
+    return {**bank_read_cuda.launches, **cc_cuda.launches}
+
+
 class VideoSegEngine:
     """Per-frame propagation engine.
 
@@ -124,10 +168,29 @@ class VideoSegEngine:
     leaves the device), 'host' (the runner applies :func:`host_largest_cc`
     to the fetched label), 'none'; 'auto' as :func:`resolve_postprocess`
     decides.
+
+    ``memorize_every``: frames whose index is a multiple of it run the
+    full step; the others run the read-only step (segment and usage only:
+    no memorize, merge or evict), as the JAX engine chooses per frame.
+
+    ``cuda_graph`` (default: on for a CUDA model): the step is captured in
+    a CUDA graph and replayed, the counterpart of the JAX engine's one
+    jitted dispatch per frame. The step makes no host sync, so it can be
+    captured: the bank's occupancy stays on the device, the host keeps an
+    upper bound of it (:class:`..memory.OccupancyBound`), and the frame
+    index lives in a static device scalar. One graph per (frame size,
+    full or read-only step, the bank update's :meth:`FeatureBank.plan`),
+    all in one memory pool; the first step of each runs eagerly (the
+    warm-up: kernels load and libraries set up), a later one captures it.
+    A replay overwrites the graph's output, so the label is copied out
+    each time. A failed capture raises; nothing falls back to eager.
+    Graphs hold the bank tensors of one state: a new state (another
+    bootstrap) drops them.
     """
 
     def __init__(self, model: AFBURR, fb: FeatureBank, downsample: int = 480,
-                 postprocess="auto", cc_scale: int = 16):
+                 postprocess="auto", memorize_every: int = 1,
+                 cc_scale: int = 16, cuda_graph: Optional[bool] = None):
         if model.dtype != torch.float32:
             model = cast_floating_params(model, model.dtype)
         self.model = model.eval()
@@ -137,18 +200,61 @@ class VideoSegEngine:
         self.postprocess = resolve_postprocess(postprocess, self.device)
         if self.postprocess not in ("device", "host", "none"):
             raise ValueError(f"unknown postprocess {postprocess!r}")
+        self.memorize_every = max(1, int(memorize_every))
         self.cc_scale = int(cc_scale)
+        on_cuda = self.device.type == "cuda"
+        self.cuda_graph = on_cuda if cuda_graph is None else bool(cuda_graph)
+        if self.cuda_graph and not on_cuda:
+            raise ValueError("cuda_graph needs a model on a CUDA device")
         self.full_hw: Optional[Tuple[int, int]] = None
+        self.graphs: Dict[tuple, _CapturedStep] = {}
+        self._seen: set = set()
+        self._graph_state: Optional[tuple] = None
+        self._pool = None
+        self._frame_bufs: Dict[tuple, torch.Tensor] = {}
+        self._staging: Dict[tuple, list] = {}
+        self._idx = torch.zeros((), dtype=torch.float32, device=self.device)
 
     def upload(self, frame) -> torch.Tensor:
         """A frame (uint8, or float in [0, 1]) as a uint8 tensor on the
-        engine's device."""
+        engine's device. From the host to a card it goes through a reused
+        pinned staging buffer (two per frame size, an event each; the host
+        waits on one only while the card still copies from it) and a
+        non-blocking copy into the engine's static frame buffer of its
+        size, which the captured graphs read: the returned tensor holds
+        this frame until the next upload of that size."""
         if torch.is_tensor(frame):
+            if frame.dtype != torch.uint8:
+                frame = (frame * 255.0 + 0.5).to(torch.uint8)
             return frame.to(self.device)
         frame = np.asarray(frame)
         if frame.dtype != np.uint8:
             frame = (frame * 255.0 + 0.5).astype(np.uint8)
-        return torch.tensor(frame).to(self.device)
+        if self.device.type != "cuda":
+            return torch.tensor(frame)
+        ring = self._staging.get(frame.shape)
+        if ring is None:
+            ring = self._staging[frame.shape] = [
+                [(torch.empty(frame.shape, dtype=torch.uint8,
+                              pin_memory=True), torch.cuda.Event())
+                 for _ in range(2)], 0]
+        bufs, i = ring
+        buf, event = bufs[i]
+        ring[1] = (i + 1) % len(bufs)
+        if not event.query():
+            event.synchronize()
+        buf.numpy()[...] = frame
+        out = self._frame_buffer(frame.shape)
+        out.copy_(buf, non_blocking=True)
+        event.record()
+        return out
+
+    def _frame_buffer(self, shape) -> torch.Tensor:
+        buf = self._frame_bufs.get(tuple(shape))
+        if buf is None:
+            buf = self._frame_bufs[tuple(shape)] = torch.empty(
+                tuple(shape), dtype=torch.uint8, device=self.device)
+        return buf
 
     @torch.no_grad()
     def bootstrap(self, first_frame: np.ndarray,
@@ -169,13 +275,17 @@ class VideoSegEngine:
         k4, v4 = self.model.memorize(frame_small, mask_small)
         return self.fb.init_bank(k4, v4)
 
-    @torch.no_grad()
-    def step(self, state: FeatureBankState, frame,
-             frame_idx: int) -> Tuple[FeatureBankState, torch.Tensor]:
-        """Process one frame. Returns (state, full-size uint8 label on the
-        device: bit-packed rows when there are two objects, see
-        :meth:`fetch_label`)."""
-        frame_u8 = self.upload(frame)
+    def _features(self, full_hw) -> int:
+        """Features a frame of ``full_hw`` adds per object: its query
+        pixels at 1/16 of the padded operating size."""
+        h, w = ops.short_side_size(*full_hw, self.downsample)
+        return -(-h // 16) * -(-w // 16)
+
+    def _device_step(self, state: FeatureBankState, frame_u8: torch.Tensor,
+                     update_bank: bool, occ_bound: int) -> torch.Tensor:
+        """The step's device work (what a graph captures): segment, record
+        usage, and with ``update_bank`` memorize and update the bank, then
+        the full-size label. The frame index is read from ``self._idx``."""
         full_hw = tuple(frame_u8.shape[:2])
         small_hw = ops.short_side_size(*full_hw, self.downsample)
         cd = self.model.dtype   # the prep runs in the compute dtype
@@ -185,9 +295,10 @@ class VideoSegEngine:
                                         state.values, state.valid,
                                         bank_occ=state.occ)
         pred = torch.softmax(score, dim=1)[0]             # [obj, h, w]
-        state = self.fb.record_usage(state, cnt)
-        k4, v4 = self.model.memorize(frame_small, pred)
-        state = self.fb.update(state, k4, v4, float(frame_idx))
+        self.fb.record_usage(state, cnt)
+        if update_bank:
+            k4, v4 = self.model.memorize(frame_small, pred)
+            self.fb.update_device(state, k4, v4, self._idx, occ_bound)
 
         if self.fb.obj_n == 2:
             # argmax of {bg, fg} is sign(fg - bg), and bicubic is linear
@@ -204,14 +315,98 @@ class VideoSegEngine:
                                            scale=self.cc_scale)
         if self.fb.obj_n == 2:
             label_full = pack_bits(label_full)
-        return state, label_full
+        return label_full
+
+    @torch.no_grad()
+    def step(self, state: FeatureBankState, frame,
+             frame_idx: int) -> Tuple[FeatureBankState, torch.Tensor]:
+        """Process one frame (numpy, or a tensor from :meth:`upload`).
+        Returns (state, full-size uint8 label on the device: bit-packed
+        rows when there are two objects, see :meth:`fetch_label`)."""
+        frame_u8 = self.upload(frame)
+        update_bank = frame_idx % self.memorize_every == 0
+        m = self._features(frame_u8.shape[:2])
+        self._idx.fill_(float(frame_idx))
+        bound = state.occ_host.bound
+        if self.cuda_graph:
+            plan = self.fb.plan(state, m) if update_bank else None
+            label = self._replay(state, frame_u8, (update_bank, plan), bound)
+        else:
+            label = self._device_step(state, frame_u8, update_bank, bound)
+        if update_bank:
+            self.fb.note_update(state, m)
+        return state, label
+
+    def _replay(self, state, frame_u8, mode, bound) -> torch.Tensor:
+        ptrs = tuple(t.data_ptr() for t in (
+            state.keys, state.values, state.valid, state.birth, state.usage,
+            state.occ, state.peak_n, state.replace_n))
+        if ptrs != self._graph_state:
+            self.graphs.clear()
+            self._seen.clear()
+            self._graph_state = ptrs
+        key = (tuple(frame_u8.shape),) + mode
+        captured = self.graphs.get(key)
+        if captured is None and key not in self._seen:
+            self._seen.add(key)            # the first step of a key: eager
+            return self._device_step(state, frame_u8, mode[0], bound)
+        buf = self._frame_buffer(frame_u8.shape)
+        if buf.data_ptr() != frame_u8.data_ptr():
+            buf.copy_(frame_u8)
+        if captured is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            before = _kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                label = self._device_step(state, buf, mode[0], bound)
+            after = _kernel_launches()
+            captured = self.graphs[key] = _CapturedStep(
+                graph, label, {k: after[k] - before[k] for k in after
+                               if after[k] != before[k]})
+        captured.graph.replay()
+        captured.replays += 1
+        return captured.label.clone()
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel launches made by graph replays so far: each graph's
+        captured launches times its replays."""
+        out: Dict[str, int] = {}
+        for captured in self.graphs.values():
+            for k, v in captured.launches.items():
+                out[k] = out.get(k, 0) + v * captured.replays
+        return out
+
+    @torch.no_grad()
+    def step_n(self, state: FeatureBankState, frames,
+               start_idx: int) -> Tuple[FeatureBankState, torch.Tensor]:
+        """K consecutive frames (a [K, H, W, 3] array or tensor, or a list
+        of frames), frame i with index ``start_idx + i``: K steps (graph
+        replays on the card), labels stacked [K, ...]. The bank is updated
+        on every frame, so only at ``memorize_every == 1``, as in the JAX
+        engine."""
+        if self.memorize_every != 1:
+            raise ValueError("step_n requires memorize_every == 1")
+        labels = []
+        for i in range(len(frames)):
+            state, label = self.step(state, frames[i], start_idx + i)
+            labels.append(label)
+        return state, torch.stack(labels)
 
     def fetch_label(self, label: torch.Tensor) -> np.ndarray:
         """Device label (possibly bit-packed) -> host uint8 [H, W]."""
-        arr = label.cpu().numpy()
-        if self.fb.obj_n == 2 and self.full_hw is not None:
-            arr = unpack_bits(arr, self.full_hw[1])
-        return arr
+        return self.fetch_label_async(label).result()
+
+    def fetch_label_async(self, label: torch.Tensor) -> PendingLabel:
+        """Start copying a device label to the host; ``.result()`` gives
+        what :meth:`fetch_label` gives."""
+        return PendingLabel(label, None if self.full_hw is None
+                            else self.full_hw[1], self.fb.obj_n == 2)
+
+    def fetch_labels(self, labels: torch.Tensor) -> np.ndarray:
+        """Stacked :meth:`step_n` labels [K, ...] -> host uint8 [K, H,
+        W]."""
+        return self.fetch_label(labels)
 
 
 def run_video_segmentation(test_path: str, test_name: str,
@@ -220,14 +415,19 @@ def run_video_segmentation(test_path: str, test_name: str,
                            budget: int = 250_000, update_rate: float = 0.1,
                            merge_thres: float = 0.95, downsample: int = 480,
                            postprocess="auto",
+                           image_model_path: Optional[str] = None,
                            first_mask_path: Optional[str] = None,
-                           cc_scale: int = 16, device="cuda") -> dict:
+                           memorize_every: int = 1, cc_scale: int = 16,
+                           device="cuda") -> dict:
     """Segment every frame of a directory; masks go to
     ``<out_dir>/<test_name>/mask`` as indexed PNGs.
 
-    The first frame's mask must exist (``first_mask_path``, or
-    ``<out_dir>/<test_name>/mask/<first frame>.png``): generating it needs
-    the image-segmentation model, which this package does not have yet.
+    A missing first-frame mask (``first_mask_path``, or
+    ``<out_dir>/<test_name>/mask/<first frame>.png``) is made by the image
+    model (:func:`.image_seg.run_image_segmentation`, weights from
+    ``image_model_path`` or the bundled checkpoint), as the JAX runner
+    does. The loop enqueues frame t before it fetches frame t - 1's label,
+    whose copy to the host was started when it was made; no thread pool.
     """
     from ..utils import load_image, load_mask, save_seg_mask
 
@@ -242,9 +442,10 @@ def run_video_segmentation(test_path: str, test_name: str,
     if first_mask_path is None:
         first_mask_path = os.path.join(mask_dir, first_name + ".png")
     if not os.path.exists(first_mask_path):
-        raise FileNotFoundError(
-            f"no first-frame mask at {first_mask_path}: the port cannot make "
-            "one until the image-segmentation slice (LinkNet) is ported")
+        # reference test_video_seg.py:67-69
+        from .image_seg import run_image_segmentation
+        run_image_segmentation(img_list[0], test_name, out_dir,
+                               model_path=image_model_path, device=device)
     if model is None:
         from .loaders import load_afb_urr
         model = load_afb_urr(device=device)
@@ -254,18 +455,27 @@ def run_video_segmentation(test_path: str, test_name: str,
                      update_rate=update_rate, thres_close=merge_thres,
                      device=device)
     engine = VideoSegEngine(model, fb, downsample=downsample,
-                            postprocess=postprocess, cc_scale=cc_scale)
+                            postprocess=postprocess,
+                            memorize_every=memorize_every, cc_scale=cc_scale)
     state = engine.bootstrap(load_image(img_list[0]), first_mask)
     save_seg_mask(first_mask, os.path.join(mask_dir, first_name + ".png"))
 
-    t0 = time.perf_counter()
-    for idx, path in enumerate(img_list[1:]):
-        state, label = engine.step(state, load_image(path), idx + 1)
-        pred = engine.fetch_label(label)
+    def write(name, pending):
+        pred = pending.result()
         if engine.postprocess == "host":
             pred = host_largest_cc(pred)
-        name = os.path.splitext(os.path.basename(path))[0]
         save_seg_mask(pred, os.path.join(mask_dir, name + ".png"))
+
+    t0 = time.perf_counter()
+    pending = None
+    for idx, path in enumerate(img_list[1:]):
+        state, label = engine.step(state, load_image(path), idx + 1)
+        if pending is not None:
+            write(*pending)
+        pending = (os.path.splitext(os.path.basename(path))[0],
+                   engine.fetch_label_async(label))
+    if pending is not None:
+        write(*pending)
     seconds = time.perf_counter() - t0
     frames = len(img_list) - 1
     report = fb.report(state)
@@ -292,8 +502,9 @@ def _args():
                         help="Flat .npz checkpoint of the JAX package "
                              "(default: the bundled trained one).")
     parser.add_argument("--image-model-path", type=str, default=None,
-                        help="Accepted for compatibility; the first-frame "
-                             "mask must exist.")
+                        help="Image model (flat .npz of the JAX package) "
+                             "that makes a missing first-frame mask "
+                             "(default: the bundled trained one).")
     parser.add_argument("--update-rate", type=float, default=0.1,
                         help="Impact of merging new features.")
     parser.add_argument("--merge-thres", type=float, default=0.95,
@@ -308,7 +519,8 @@ def _args():
     parser.add_argument("--checkpoint-every", type=int, default=0,
                         help="Bank checkpoints are not ported yet; must be 0.")
     parser.add_argument("--memorize-every", type=int, default=1,
-                        help="Only 1 (memorize every frame) is ported.")
+                        help="Memorize / update the bank every K frames "
+                             "(1 = every frame, the reference).")
     parser.add_argument("--cc-scale", type=int, default=16,
                         help="Device largest-CC grid is 1/K of the "
                              "operating resolution.")
@@ -324,9 +536,9 @@ def _args():
 
 def main() -> None:
     args = _args()
-    if args.checkpoint_every != 0 or args.memorize_every != 1:
-        raise SystemExit("--checkpoint-every and --memorize-every other "
-                         "than their defaults are not ported yet")
+    if args.checkpoint_every != 0:
+        raise SystemExit("--checkpoint-every other than 0 is not ported "
+                         "yet")
     device = f"cuda:{args.gpu}" if args.device == "cuda" else args.device
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -337,7 +549,9 @@ def main() -> None:
         args.test_path, args.test_name, model=model, budget=args.budget,
         update_rate=args.update_rate, merge_thres=args.merge_thres,
         downsample=args.downsample, postprocess=args.postprocess,
-        first_mask_path=args.first_mask, cc_scale=args.cc_scale,
+        image_model_path=args.image_model_path,
+        first_mask_path=args.first_mask,
+        memorize_every=args.memorize_every, cc_scale=args.cc_scale,
         device=device)
 
 
