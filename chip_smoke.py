@@ -70,18 +70,41 @@ Phases, each printing one line with its elapsed seconds:
    of the CPU's bf16 and float32 labels on that clip (at the same
    ``memorize_every``), less 0.01: bf16 labels there move with the
    convolutions' summation order.
+11. water level (``pipelines/streaming_waterlevel.py``): (a) the bf16
+   engine of phase 10's weights with a bf16 bank (budget 250,000, 2
+   objects, ``postprocess="none"``) as ``StreamingWaterLevel`` steps on
+   16 synthetic 1080p frames, first mask water below row 540, the box of
+   ``records/groundtruth/LSU_demo/ref_bbox.txt`` and one over the middle
+   of the frame, levels through a
+   ``BoundedResolver(lag=4)``; every step but the one that captures a
+   graph runs under sync debug "error"; each frame's levels equal a host
+   scan of its fetched operating-size label; the resolver never holds more
+   than 4 frames; the bf16 read, the combine and the bf16 count launch
+   once per frame (eager steps and replays); the streaming step's time
+   and the plain ``engine.step``'s on the same 8 frames and bank, in
+   turns (plain, streaming, streaming, plain; unsynchronised, CUDA events
+   at the window's ends). (b) The float32 streaming path on the card
+   against the port on the CPU on phase 6's 240-px clip: on every frame
+   whose label columns under the boxes agree, the levels are equal. (c)
+   The MOSSE tracker on the card against itself on the CPU on a
+   translating, growing object: boxes within 1 px, equal ``ok`` flags.
+   (d) The bilinear perspective warp of a 1080p frame, card against CPU,
+   within 1 grey level, and its time.
 
 Then one JSON line of the kernels' numbers (with the step times of
-phase 5 and the image path's beside them) and, last, ``{"ok": true,
-"device": {...}}``. In the JSON line, ``bank_read`` times the read with its
-combine (the function that its plain version and the yardstick compute)
-and gives the read kernel alone as ``read_kernel_ms``; ``bound_ms`` is the
-3xTF32 tensor-core bound (three times the flop at 495 TFLOP/s, against the
-bytes at 3.35 TB/s) and ``bound_f32_cuda_cores_ms`` the float32 CUDA-core
-one (67 TFLOP/s). Any failed check raises and the exit code is not 0; the
-script exits 1 with no result when CUDA is absent.
+phase 5, the image path's and the water-level phase's beside them, and
+each kernel's launches in phase 11 as ``launches_waterlevel``) and, last,
+``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
+the read with its combine (the function that its plain version and the
+yardstick compute) and gives the read kernel alone as
+``read_kernel_ms``; ``bound_ms`` is the 3xTF32 tensor-core bound (three
+times the flop at 495 TFLOP/s, against the bytes at 3.35 TB/s) and
+``bound_f32_cuda_cores_ms`` the float32 CUDA-core one (67 TFLOP/s). Any
+failed check raises and the exit code is not 0; the script exits 1 with
+no result when CUDA is absent.
 """
 
+import collections
 import contextlib
 import copy
 import json
@@ -104,6 +127,12 @@ from vfloodnet_tpu_torch.ops import (attention, bank_read_cuda, cc, cc_cuda,
 from vfloodnet_tpu_torch.pipelines import image_seg
 from vfloodnet_tpu_torch.pipelines.loaders import (default_checkpoint,
                                                    load_afb_urr, load_linknet)
+from vfloodnet_tpu_torch.ops.homography import (find_homography,
+                                                perspective_map,
+                                                warp_perspective)
+from vfloodnet_tpu_torch.ops.tracker import MosseTracker
+from vfloodnet_tpu_torch.pipelines.streaming_waterlevel import (
+    BoundedResolver, StreamingWaterLevel)
 from vfloodnet_tpu_torch.pipelines.video_seg import (VideoSegEngine,
                                                      host_largest_cc)
 
@@ -1073,6 +1102,278 @@ def cc_row(cc_timing, launches, launches16):
         "batch_416": cc_timing["batch_416"]}
 
 
+def _host_levels(label, boxes, scale):
+    """Levels [T] of the JAX package's arithmetic on a host scan of an
+    operating-size label: the first water row strictly below each box's
+    bottom centre."""
+    out = []
+    for x, y, w, h in boxes:
+        col, row = int((x + w / 2) * scale), int((y + h) * scale)
+        below = np.nonzero(label[row + 1:, col] == 1)[0]
+        lv = np.nan if below.size == 0 else (1 + below[0]) / scale
+        out.append(np.nan if lv <= 1.0 / scale else float(lv))
+    return out
+
+
+def _captures_next(eng, state, frame):
+    """Whether ``eng.step`` of ``frame`` will capture a graph (the second
+    step of a graph key) rather than replay it or run eagerly."""
+    m = eng._features(frame.shape[:2])
+    key = (tuple(frame.shape), True, eng.fb.plan(state, m))
+    return key in eng._seen and key not in eng.graphs
+
+
+def _same_levels(a, b):
+    return all((np.isnan(x) and np.isnan(y)) or x == y for x, y in zip(a, b))
+
+
+def streaming_phase(model16, kernels):
+    """(a) of phase 11: the bf16 streaming path at full width; returns
+    its numbers and the kernels' launches."""
+    frames, _ = synthetic_clip(17, *FRAME_HW, SEED + 9)
+    mask0 = np.zeros(FRAME_HW, np.uint8)
+    mask0[540:] = 1
+    box_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "records", "groundtruth", "LSU_demo",
+                            "ref_bbox.txt")
+    # the LSU site's stored box, and one over the middle of the frame
+    boxes = [tuple(int(v) for v in np.atleast_2d(np.loadtxt(box_path))[0]),
+             (900, 300, 40, 100)]
+    fb = FeatureBank(obj_n=2, memory_budget=BUDGET, dtype=torch.bfloat16,
+                     device=DEV)
+    eng = VideoSegEngine(model16, fb, downsample=DOWNSAMPLE,
+                         postprocess="none")
+    check(eng.cuda_graph, "the streaming engine replays graphs")
+    state = eng.bootstrap(frames[0], mask0)
+    stream = StreamingWaterLevel(eng, boxes)
+    resolver = BoundedResolver(stream, len(boxes), lag=4)
+    bank_read_cuda.reset_launches()
+    cc_cuda.reset_launches()
+    pendings, smalls, guarded = [], [], 0
+    for i, f in enumerate(frames[1:]):
+        # the first step fills the engine's caches; a capture synchronises
+        if i > 0 and not _captures_next(eng, state, f):
+            torch.cuda.set_sync_debug_mode("error")
+            guarded += 1
+        try:
+            state, pending, small = stream.step_async(state, f, i + 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        resolver.push(pending)
+        check(len(resolver.pending) <= 4, "the resolver holds at most 4")
+        pendings.append(pending)
+        smalls.append(small)
+    levels = resolver.finish()
+    torch.cuda.synchronize()
+    counted = {**bank_read_cuda.launches, **cc_cuda.launches}
+    captured = sum((collections.Counter(g.launches)
+                    for g in eng.graphs.values()), collections.Counter())
+    replayed = eng.graph_launches()
+    launches = {k: counted[k] - captured.get(k, 0) + replayed.get(k, 0)
+                for k in counted}
+    n = len(frames) - 1
+    want = {k: (n if k in kernels else 0) for k in launches}
+    check(launches == want, f"streaming launched {kernels} once per frame "
+          f"and no other bank or CC kernel: {launches}")
+    check(guarded == n - 1 - len(eng.graphs), f"{guarded} of {n} steps "
+          f"ran under sync debug: all but the first and the "
+          f"{len(eng.graphs)} captures")
+    check(resolver.max_live == 4, f"resolver held {resolver.max_live}")
+    scale = smalls[0].shape[0] / FRAME_HW[0]
+    raw, filled, prev = [], [], [0.0] * len(boxes)
+    for pending, small in zip(pendings, smalls):
+        lv = stream.resolve(pending)
+        host = _host_levels(small.cpu().numpy(), boxes, scale)
+        check(_same_levels(lv, host), f"levels {lv} equal the host scan "
+              f"{host}")
+        prev = [p if np.isnan(v) else v for v, p in zip(lv, prev)]
+        raw.append(lv)
+        filled.append(prev)
+    check(levels == filled, "the resolver forward-fills the levels")
+    check(any(np.isfinite(lv).any() for lv in raw), f"water found below "
+          f"a box: {raw}")
+    first_rows = [[int(np.argmax(sm[:, c] == 1)) if (sm[:, c] == 1).any()
+                   else None for c in (int((x + w / 2) * scale)
+                                       for x, y, w, h in boxes)]
+                  for sm in (smalls[0].cpu().numpy(),
+                             smalls[-1].cpu().numpy())]
+    # the same 8 frames from the same bank, plain steps and streaming
+    # steps in turns; the occupancy bound is not refreshed within a pass,
+    # so every pass meets the same graph key (the first pass captures it)
+    snap = {k: getattr(state, k).clone() for k in BANK_STATE}
+    state.occ_host.refresh = lambda occ: None
+    window = frames[1:9]
+
+    def run(streaming, around=contextlib.nullcontext):
+        for k in BANK_STATE:
+            getattr(state, k).copy_(snap[k])
+        state.occ_host.reset(state.occ)
+        res = BoundedResolver(stream, len(boxes), lag=4)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with around():
+            torch.cuda.synchronize()
+            a.record()
+            for i, f in enumerate(window):
+                if streaming:
+                    res.push(stream.step_async(state, f, 17 + i)[1])
+                else:
+                    eng.step(state, f, 17 + i)
+            b.record()
+            b.synchronize()
+        res.finish()
+        return a.elapsed_time(b) / len(window)
+
+    run(True)
+    run(True)                                     # captures, if it must
+    graphs = len(eng.graphs)
+    times = {"plain": [], "streaming": []}
+    for streaming in (False, True, True, False):
+        times["streaming" if streaming else "plain"].append(run(streaming))
+    busy = {}
+    for streaming in (False, True):
+        holder = {}
+
+        @contextlib.contextmanager
+        def profiled():
+            with _profile() as prof:
+                yield
+            holder["prof"] = prof
+        run(streaming, profiled)
+        busy["streaming" if streaming else "plain"] = _busy_ms(
+            holder["prof"], ())[0] / len(window)
+    check(len(eng.graphs) == graphs, "the timed passes only replayed")
+    del state.occ_host.refresh
+    plain_ms = float(np.median(times["plain"]))
+    stream_ms = float(np.median(times["streaming"]))
+    out = {"steps": n, "graphs": len(eng.graphs),
+           "replays": sum(g.replays for g in eng.graphs.values()),
+           "steps_under_sync_debug": guarded, "launches": launches,
+           "resolver_max_live": resolver.max_live,
+           "boxes": [list(b) for b in boxes],
+           "levels_px": [[None if np.isnan(v) else v for v in lv]
+                         for lv in raw],
+           "plain_step_ms": times["plain"], "stream_step_ms":
+           times["streaming"], "overhead_ms": stream_ms - plain_ms,
+           "plain_busy_ms": busy["plain"],
+           "stream_busy_ms": busy["streaming"],
+           "stream_idle": 1 - busy["streaming"] / stream_ms}
+    log("waterlevel", f"bf16 streaming, {n} steps of {FRAME_HW} -> "
+        f"{tuple(smalls[0].shape)}, boxes {boxes}: {out['graphs']} graphs, "
+        f"{out['replays']} replays, {guarded} steps under sync debug "
+        f"'error' (none raised); launches {launches}; levels equal the host "
+        f"scan on every frame (first {raw[0]}, last {raw[-1]} px; first "
+        f"water row in the boxes' columns, first and last frame: "
+        f"{first_rows}); "
+        f"resolver held at most {resolver.max_live}; ms per step over "
+        f"{len(window)} frames, plain {times['plain']} / streaming "
+        f"{times['streaming']}: overhead {out['overhead_ms']:.4f} ms; "
+        f"device busy a step (profiler) plain {busy['plain']:.3f}, "
+        f"streaming {busy['streaming']:.3f} ms, idle share of the "
+        f"streaming step {out['stream_idle']:.1%}")
+    del eng, state, smalls, pendings
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def streaming_agreement_phase(model):
+    """(b) of phase 11: the float32 streaming path on the card against
+    the port on the CPU on phase 6's 240-px clip."""
+    frames, mask0 = synthetic_clip(5, 240, 427, SEED + 1)
+    boxes = [(60, 100, 20, 20), (200, 90, 16, 30), (350, 60, 20, 40)]
+    out = {}
+    for dev in (DEV, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        eng = VideoSegEngine(m, FeatureBank(obj_n=2, memory_budget=65_536,
+                                            device=dev),
+                             downsample=240, postprocess="none")
+        stream = StreamingWaterLevel(eng, boxes)
+        state = eng.bootstrap(frames[0], mask0)
+        rows = []
+        for i, f in enumerate(frames[1:]):
+            state, lv, small = stream.step(state, f, i + 1)
+            rows.append((lv, small.cpu().numpy()))
+        out[dev.type] = rows
+    cols = [int(x + w / 2) for x, y, w, h in boxes]
+    agree = equal = 0
+    for (lv_c, s_c), (lv_h, s_h) in zip(out["cuda"], out["cpu"]):
+        if np.array_equal(s_c[:, cols], s_h[:, cols]):
+            agree += 1
+            check(_same_levels(lv_c, lv_h), f"card levels {lv_c} equal "
+                  f"the CPU's {lv_h} where the columns agree")
+            equal += 1
+    share = agree / len(out["cuda"])
+    log("waterlevel", f"float32 streaming, 240x427 clip, 4 steps, 3 boxes: "
+        f"label columns under the boxes agree card vs CPU on {agree} of "
+        f"{len(out['cuda'])} frames ({share:.2f}); levels equal on all "
+        f"{equal}; card {out['cuda'][-1][0]}, CPU {out['cpu'][-1][0]}")
+    return {"frames_columns_agree": share}
+
+
+def tracker_phase():
+    """(c) of phase 11: MOSSE on the card against the CPU."""
+    rng = np.random.RandomState(SEED + 10)
+    size, side, cx, cy = 480, 40.0, 200.0, 220.0
+    frames = []
+    for _ in range(21):
+        img = rng.uniform(0, 60, (size, size)).astype(np.float32)
+        s = int(round(side))
+        tex = (np.indices((s, s)).sum(0) % 7) * 25.0 + 120.0
+        x1, y1 = int(cx - s / 2), int(cy - s / 2)
+        img[y1:y1 + s, x1:x1 + s] = tex
+        frames.append(img)
+        cx, cy, side = cx + 3.0, cy + 2.0, side * 1.015
+    box = (180, 200, 40, 40)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = MosseTracker(device=dev)
+        tr.init(frames[0], box)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[dev] = [tr.update(f) for f in frames[1:]]
+        out[dev + "_ms"] = 1e3 * (time.perf_counter() - t) / 20
+    worst = 0
+    for (ok_c, b_c), (ok_h, b_h) in zip(out["cuda"], out["cpu"]):
+        check(ok_c == ok_h, "tracker ok flags equal, card vs CPU")
+        worst = max(worst, max(abs(a - b) for a, b in zip(b_c, b_h)))
+    check(worst <= 1, f"tracker boxes within 1 px, card vs CPU: {worst}")
+    log("waterlevel", f"MOSSE tracker, 20 frames of a translating, growing "
+        f"object: boxes card vs CPU within {worst} px, ok flags equal "
+        f"({sum(ok for ok, _ in out['cuda'])} of 20 ok); "
+        f"last box {out['cuda'][-1][1]}; {out['cuda_ms']:.2f} ms a frame "
+        f"on the card (host clock, includes its PSR read), "
+        f"{out['cpu_ms']:.2f} on the CPU")
+    return {"box_max_diff_px": worst, "card_ms": out["cuda_ms"],
+            "cpu_ms": out["cpu_ms"]}
+
+
+def warp_phase():
+    """(d) of phase 11: the bilinear perspective warp of a 1080p frame,
+    card against CPU."""
+    frame = synthetic_clip(1, *FRAME_HW, SEED + 11)[0][0]
+    h, w = FRAME_HW
+    src = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]],
+                   np.float64)
+    hm = find_homography(src, src + np.array([[20, 10], [-30, 15],
+                                              [12, -18], [-25, -22]]))
+    host = torch.from_numpy(frame)
+    dev = host.to(DEV)
+    warp = perspective_map(hm, FRAME_HW, device=DEV)
+    got = warp(dev).cpu()
+    want = warp_perspective(host, hm)
+    diff = int((got.int() - want.int()).abs().max())
+    check(diff <= 1, f"warp card vs CPU within 1 grey level: {diff}")
+    ms = time_ms(lambda: warp(dev))
+    map_ms = time_ms(lambda: perspective_map(hm, FRAME_HW, device=DEV),
+                     reps=5)
+    log("waterlevel", f"bilinear perspective warp of {FRAME_HW}: card vs "
+        f"CPU max |diff| {diff} grey level(s), "
+        f"{float((got != want).float().mean()):.2e} of values differ; "
+        f"{ms:.3f} ms a frame on the card with the map made once "
+        f"({map_ms:.3f} ms to make it)")
+    return {"max_diff": diff, "ms": ms, "map_ms": map_ms}
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -1132,12 +1433,18 @@ def main():
             f"{gap - 0.01:.6f}")
         check(agree16 >= gap - 0.01, "the bf16 card and CPU engines agree "
               "as well as bf16 and float32 do on the CPU, less 0.01")
+    waterlevel, launches_wl = streaming_phase(model16, bf16_kernels)
+    waterlevel["card_vs_cpu"] = streaming_agreement_phase(model)
+    waterlevel["tracker"] = tracker_phase()
+    waterlevel["warp"] = warp_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
+    for row in kernels:
+        row["launches_waterlevel"] = launches_wl[row["name"]]
     log("done", f"total {time.perf_counter() - T0:.1f}s")
-    print(json.dumps({"kernels": kernels, "steps": steps, "image": image}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
+                      "waterlevel": waterlevel}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """The port stands alone: ``vfloodnet_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX or of the JAX package, import PIL and cv2 only inside
-functions, and the package imports where there is no CUDA and no nvcc."""
+import nothing of JAX or of the JAX package, import PIL, cv2, pandas and
+matplotlib only inside functions, and the package imports where there is
+no CUDA and no nvcc."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob(os.path.join(REPO, "vfloodnet_tpu_torch", "**", "*.py"),
                     recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "vfloodnet_tpu")
-LAZY = ("PIL", "cv2")
+LAZY = ("PIL", "cv2", "pandas", "matplotlib")
 
 
 def _imports(tree):

@@ -143,12 +143,15 @@ class PendingLabel:
 
 
 class _CapturedStep:
-    """One step captured in a CUDA graph: its output buffer, the kernel
-    launches its capture recorded (each replay launches them again), and
-    how often it was replayed."""
+    """One step captured in a CUDA graph: its output buffers (the
+    full-size and the operating-size label), the kernel launches its
+    capture recorded (each replay launches them again), and how often it
+    was replayed."""
 
-    def __init__(self, graph, label: torch.Tensor, launches: Dict[str, int]):
-        self.graph, self.label, self.launches = graph, label, launches
+    def __init__(self, graph, label: torch.Tensor, label_small: torch.Tensor,
+                 launches: Dict[str, int]):
+        self.graph, self.launches = graph, launches
+        self.label, self.label_small = label, label_small
         self.replays = 0
 
 
@@ -182,7 +185,7 @@ class VideoSegEngine:
     full or read-only step, the bank update's :meth:`FeatureBank.plan`),
     all in one memory pool; the first step of each runs eagerly (the
     warm-up: kernels load and libraries set up), a later one captures it.
-    A replay overwrites the graph's output, so the label is copied out
+    A replay overwrites the graph's outputs, so the labels are copied out
     each time. A failed capture raises; nothing falls back to eager.
     Graphs hold the bank tensors of one state: a new state (another
     bootstrap) drops them.
@@ -282,10 +285,12 @@ class VideoSegEngine:
         return -(-h // 16) * -(-w // 16)
 
     def _device_step(self, state: FeatureBankState, frame_u8: torch.Tensor,
-                     update_bank: bool, occ_bound: int) -> torch.Tensor:
+                     update_bank: bool, occ_bound: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The step's device work (what a graph captures): segment, record
-        usage, and with ``update_bank`` memorize and update the bank, then
-        the full-size label. The frame index is read from ``self._idx``."""
+        usage, and with ``update_bank`` memorize and update the bank; then
+        the full-size label and the operating-size one (uint8 [h, w],
+        before any cleanup). The frame index is read from ``self._idx``."""
         full_hw = tuple(frame_u8.shape[:2])
         small_hw = ops.short_side_size(*full_hw, self.downsample)
         cd = self.model.dtype   # the prep runs in the compute dtype
@@ -315,7 +320,7 @@ class VideoSegEngine:
                                            scale=self.cc_scale)
         if self.fb.obj_n == 2:
             label_full = pack_bits(label_full)
-        return label_full
+        return label_full, label_small
 
     @torch.no_grad()
     def step(self, state: FeatureBankState, frame,
@@ -323,6 +328,19 @@ class VideoSegEngine:
         """Process one frame (numpy, or a tensor from :meth:`upload`).
         Returns (state, full-size uint8 label on the device: bit-packed
         rows when there are two objects, see :meth:`fetch_label`)."""
+        state, label, _ = self._step(state, frame, frame_idx, False)
+        return state, label
+
+    @torch.no_grad()
+    def step_with_small(self, state: FeatureBankState, frame, frame_idx: int
+                        ) -> Tuple[FeatureBankState, torch.Tensor,
+                                   torch.Tensor]:
+        """:meth:`step`, and the frame's label at the operating size (uint8
+        [h, w] on the device, water = 1), as the JAX engine's ``_step``
+        gives it: what the water-level scan reads."""
+        return self._step(state, frame, frame_idx, True)
+
+    def _step(self, state, frame, frame_idx, want_small):
         frame_u8 = self.upload(frame)
         update_bank = frame_idx % self.memorize_every == 0
         m = self._features(frame_u8.shape[:2])
@@ -330,14 +348,16 @@ class VideoSegEngine:
         bound = state.occ_host.bound
         if self.cuda_graph:
             plan = self.fb.plan(state, m) if update_bank else None
-            label = self._replay(state, frame_u8, (update_bank, plan), bound)
+            label, small = self._replay(state, frame_u8, (update_bank, plan),
+                                        bound, want_small)
         else:
-            label = self._device_step(state, frame_u8, update_bank, bound)
+            label, small = self._device_step(state, frame_u8, update_bank,
+                                             bound)
         if update_bank:
             self.fb.note_update(state, m)
-        return state, label
+        return state, label, small
 
-    def _replay(self, state, frame_u8, mode, bound) -> torch.Tensor:
+    def _replay(self, state, frame_u8, mode, bound, want_small):
         ptrs = tuple(t.data_ptr() for t in (
             state.keys, state.values, state.valid, state.birth, state.usage,
             state.occ, state.peak_n, state.replace_n))
@@ -359,14 +379,15 @@ class VideoSegEngine:
             before = _kernel_launches()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool):
-                label = self._device_step(state, buf, mode[0], bound)
+                label, small = self._device_step(state, buf, mode[0], bound)
             after = _kernel_launches()
             captured = self.graphs[key] = _CapturedStep(
-                graph, label, {k: after[k] - before[k] for k in after
-                               if after[k] != before[k]})
+                graph, label, small, {k: after[k] - before[k] for k in after
+                                      if after[k] != before[k]})
         captured.graph.replay()
         captured.replays += 1
-        return captured.label.clone()
+        return (captured.label.clone(),
+                captured.label_small.clone() if want_small else None)
 
     def graph_launches(self) -> Dict[str, int]:
         """Kernel launches made by graph replays so far: each graph's
@@ -414,13 +435,15 @@ def run_video_segmentation(test_path: str, test_name: str,
                            model: Optional[AFBURR] = None,
                            budget: int = 250_000, update_rate: float = 0.1,
                            merge_thres: float = 0.95, downsample: int = 480,
-                           postprocess="auto",
+                           viz: bool = True, postprocess="auto",
                            image_model_path: Optional[str] = None,
                            first_mask_path: Optional[str] = None,
                            memorize_every: int = 1, cc_scale: int = 16,
                            device="cuda") -> dict:
     """Segment every frame of a directory; masks go to
-    ``<out_dir>/<test_name>/mask`` as indexed PNGs.
+    ``<out_dir>/<test_name>/mask`` as indexed PNGs and, with ``viz``,
+    overlays of them on the frames to ``<out_dir>/<test_name>/overlay``
+    (:func:`..utils.save_overlay`), as the JAX runner writes them.
 
     A missing first-frame mask (``first_mask_path``, or
     ``<out_dir>/<test_name>/mask/<first frame>.png``) is made by the image
@@ -429,7 +452,7 @@ def run_video_segmentation(test_path: str, test_name: str,
     does. The loop enqueues frame t before it fetches frame t - 1's label,
     whose copy to the host was started when it was made; no thread pool.
     """
-    from ..utils import load_image, load_mask, save_seg_mask
+    from ..utils import load_image, load_mask, save_overlay, save_seg_mask
 
     device = resolve_device(device)
     img_list = sorted(glob(os.path.join(test_path, "*.jpg"))
@@ -437,7 +460,10 @@ def run_video_segmentation(test_path: str, test_name: str,
     if not img_list:
         raise FileNotFoundError(f"no frames in {test_path}")
     mask_dir = os.path.join(out_dir, test_name, "mask")
+    overlay_dir = os.path.join(out_dir, test_name, "overlay")
     os.makedirs(mask_dir, exist_ok=True)
+    if viz:
+        os.makedirs(overlay_dir, exist_ok=True)
     first_name = os.path.splitext(os.path.basename(img_list[0]))[0]
     if first_mask_path is None:
         first_mask_path = os.path.join(mask_dir, first_name + ".png")
@@ -457,23 +483,30 @@ def run_video_segmentation(test_path: str, test_name: str,
     engine = VideoSegEngine(model, fb, downsample=downsample,
                             postprocess=postprocess,
                             memorize_every=memorize_every, cc_scale=cc_scale)
-    state = engine.bootstrap(load_image(img_list[0]), first_mask)
+    first_frame = load_image(img_list[0])
+    state = engine.bootstrap(first_frame, first_mask)
     save_seg_mask(first_mask, os.path.join(mask_dir, first_name + ".png"))
+    if viz:
+        save_overlay(first_frame, first_mask,
+                     os.path.join(overlay_dir, first_name + ".png"))
 
-    def write(name, pending):
+    def write(name, pending, frame):
         pred = pending.result()
         if engine.postprocess == "host":
             pred = host_largest_cc(pred)
         save_seg_mask(pred, os.path.join(mask_dir, name + ".png"))
+        if viz:
+            save_overlay(frame, pred, os.path.join(overlay_dir, name + ".png"))
 
     t0 = time.perf_counter()
     pending = None
     for idx, path in enumerate(img_list[1:]):
-        state, label = engine.step(state, load_image(path), idx + 1)
+        frame = load_image(path)
+        state, label = engine.step(state, frame, idx + 1)
         if pending is not None:
             write(*pending)
         pending = (os.path.splitext(os.path.basename(path))[0],
-                   engine.fetch_label_async(label))
+                   engine.fetch_label_async(label), frame)
     if pending is not None:
         write(*pending)
     seconds = time.perf_counter() - t0
@@ -496,8 +529,7 @@ def _args():
     parser.add_argument("--budget", type=int, default=250000,
                         help="Max number of features in the feature bank.")
     parser.add_argument("--viz", action="store_true", default=True,
-                        help="Accepted for compatibility; overlays are not "
-                             "written yet.")
+                        help="Write overlays of the masks on the frames.")
     parser.add_argument("--model-path", type=str, default=None,
                         help="Flat .npz checkpoint of the JAX package "
                              "(default: the bundled trained one).")
@@ -548,8 +580,8 @@ def main() -> None:
     run_video_segmentation(
         args.test_path, args.test_name, model=model, budget=args.budget,
         update_rate=args.update_rate, merge_thres=args.merge_thres,
-        downsample=args.downsample, postprocess=args.postprocess,
-        image_model_path=args.image_model_path,
+        downsample=args.downsample, viz=args.viz,
+        postprocess=args.postprocess, image_model_path=args.image_model_path,
         first_mask_path=args.first_mask,
         memorize_every=args.memorize_every, cc_scale=args.cc_scale,
         device=device)

@@ -1,6 +1,7 @@
-"""Indexed-PNG masks with the reference palette (water = label 1), and
-frame reading. PIL is imported inside the functions that read or write
-files, so the package imports where PIL is absent."""
+"""Indexed-PNG masks with the reference palette (water = label 1), frame
+reading, and mask overlays. PIL is imported inside the functions that read
+or write files, so the package imports where PIL is absent; the overlay
+itself is numpy."""
 
 from __future__ import annotations
 
@@ -35,3 +36,48 @@ def load_mask(path: str) -> np.ndarray:
     with Image.open(path) as img:
         return np.asarray(img.convert("P") if img.mode not in ("P", "L")
                           else img, dtype=np.uint8)
+
+
+def _dilate(mask: np.ndarray) -> np.ndarray:
+    """One-pixel 4-neighbour dilation of a boolean mask."""
+    out = mask.copy()
+    out[1:, :] |= mask[:-1, :]
+    out[:-1, :] |= mask[1:, :]
+    out[:, 1:] |= mask[:, :-1]
+    out[:, :-1] |= mask[:, 1:]
+    return out
+
+
+def add_overlay(img_bgr: np.ndarray, mask: np.ndarray,
+                colors: Sequence[int] = COLOR_PALETTE,
+                alpha: float = 0.4, cscale: float = 1.0) -> np.ndarray:
+    """Blend each label's palette colour onto a BGR uint8 image (the
+    image at weight ``alpha``) and draw each label's outline in black:
+    the pixels just outside it (reference myutils/data.py:56-75)."""
+    out = img_bgr.copy()
+    color_table = np.atleast_2d(np.reshape(
+        np.asarray(colors, dtype=np.float64), (-1, 3))) * cscale
+    for label in np.unique(mask):
+        if label == 0:
+            continue
+        binary = mask == label
+        col = color_table[label][::-1] * (1.0 - alpha)
+        out[binary] = (img_bgr[binary] * alpha + col).astype(np.uint8)
+        contour = _dilate(binary) ^ binary
+        out[contour, :] = 0
+    return out
+
+
+def save_overlay(img_rgb: np.ndarray, mask: np.ndarray, overlay_path: str,
+                 colors: Sequence[int] = COLOR_PALETTE,
+                 alpha: float = 0.4, cscale: float = 1.0) -> None:
+    """Write :func:`add_overlay` of an RGB image (uint8, or float in
+    [0, 1]) as a PNG."""
+    from PIL import Image
+    img_rgb = np.asarray(img_rgb)
+    if img_rgb.dtype != np.uint8:
+        img_rgb = (img_rgb * 255).astype(np.uint8)
+    overlay = add_overlay(np.ascontiguousarray(img_rgb[..., ::-1]),
+                          np.asarray(mask), colors, alpha, cscale)
+    Image.fromarray(np.ascontiguousarray(overlay[..., ::-1])).save(
+        overlay_path)
