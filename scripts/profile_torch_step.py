@@ -28,9 +28,15 @@ replay. (Without the refresh the bound grows by every feature a frame
 adds, merged ones too, so a window may visit a chunk more in the match
 than the engine would.)
 
+With ``--streams B`` (B > 1) the engine is the multi-stream
+``BatchVideoSegEngine``: each step takes one frame of each of B streams
+(stream s plays the clip from frame s on), the B banks are one state of
+B x 2 rows, and a row's frames/s is B x 1000 / step ms.
+
 Run from the repository root on a GPU machine:
 
     python3 scripts/profile_torch_step.py [--dtype bfloat16] [--mode graph]
+        [--streams 4]
 
 Prints one JSON line per mode and bank state.
 """
@@ -54,6 +60,8 @@ import chip_smoke  # noqa: E402  (synthetic frames)
 from vfloodnet_tpu_torch.memory import FeatureBank  # noqa: E402
 from vfloodnet_tpu_torch.models import afb_urr  # noqa: E402
 from vfloodnet_tpu_torch.pipelines import video_seg  # noqa: E402
+from vfloodnet_tpu_torch.pipelines.video_seg_batch import (  # noqa: E402
+    BatchVideoSegEngine)
 from vfloodnet_tpu_torch.pipelines.loaders import (  # noqa: E402
     default_checkpoint, load_afb_urr)
 
@@ -104,12 +112,13 @@ def _group(name):
 def stage_breakdown(eng, state, frames, first_idx):
     acc = defaultdict(list)
     model, fb = eng.model, eng.fb
-    saved = (model.encode_query, model.decode_with_memory, model.memorize,
-             fb.record_usage, fb.update_device, afb_urr.bank_attention_read,
-             video_seg.device_largest_cc)
+    saved = (model.encode_query, model.decode_with_memory,
+             model.memorize_streams, fb.record_usage, fb.update_device,
+             afb_urr.bank_attention_read, video_seg.device_largest_cc)
     model.encode_query = _timed(model.encode_query, "query_encode", acc)
     model.decode_with_memory = _timed(model.decode_with_memory, "decode", acc)
-    model.memorize = _timed(model.memorize, "memorize", acc)
+    # memorize of one stream calls memorize_streams
+    model.memorize_streams = _timed(model.memorize_streams, "memorize", acc)
     fb.record_usage = _timed(fb.record_usage, "usage", acc)
     fb.update_device = _timed(fb.update_device, "bank_update", acc)
     afb_urr.bank_attention_read = _timed(afb_urr.bank_attention_read,
@@ -124,10 +133,11 @@ def stage_breakdown(eng, state, frames, first_idx):
             torch.cuda.synchronize()
             acc["step"].append(1e3 * (time.perf_counter() - t))
     finally:
-        (model.encode_query, model.decode_with_memory, model.memorize,
-         fb.record_usage, fb.update_device, afb_urr.bank_attention_read,
-         video_seg.device_largest_cc) = saved
-        for name in ("encode_query", "decode_with_memory", "memorize"):
+        (model.encode_query, model.decode_with_memory,
+         model.memorize_streams, fb.record_usage, fb.update_device,
+         afb_urr.bank_attention_read, video_seg.device_largest_cc) = saved
+        for name in ("encode_query", "decode_with_memory",
+                     "memorize_streams"):
             model.__dict__.pop(name, None)
         for name in ("record_usage", "update_device"):
             fb.__dict__.pop(name, None)
@@ -223,6 +233,8 @@ def main():
     parser.add_argument("--mode", choices=("eager", "graph", "both"),
                         default="both",
                         help="the eager step, the graph replays, or both")
+    parser.add_argument("--streams", type=int, default=1,
+                        help="streams a step (B > 1: the batch engine)")
     args = parser.parse_args()
     dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
@@ -237,15 +249,23 @@ def main():
     dev = torch.device("cuda")
     model = load_afb_urr(default_checkpoint("video"), device=dev,
                          dtype=dtype)
-    frames, mask0 = chip_smoke.synthetic_clip(1 + 3 + STEPS, 1080, 1920, 0)
+    b = args.streams
+    clip, mask0 = chip_smoke.synthetic_clip(1 + 3 + STEPS, 1080, 1920, 0)
+    frames = clip if b == 1 else [np.stack([clip[(t + s) % len(clip)]
+                                            for s in range(b)])
+                                  for t in range(len(clip))]
     modes = ("eager", "graph") if args.mode == "both" else (args.mode,)
     for mode in modes:
         fb = FeatureBank(obj_n=2, memory_budget=250_000, dtype=dtype,
                          device=dev)
-        eng = video_seg.VideoSegEngine(model, fb, downsample=480,
-                                       postprocess="device",
-                                       cuda_graph=mode == "graph")
-        state = eng.bootstrap(frames[0], mask0)
+        kw = dict(downsample=480, postprocess="device",
+                  cuda_graph=mode == "graph")
+        if b == 1:
+            eng = video_seg.VideoSegEngine(model, fb, **kw)
+            state = eng.bootstrap(frames[0], mask0)
+        else:
+            eng = BatchVideoSegEngine(model, fb, batch=b, **kw)
+            state = eng.bootstrap(list(frames[0]), [mask0] * b)
         for i, f in enumerate(frames[1:4]):          # warm-up
             state, _ = eng.step(state, f, i + 1)
         for bank in ("main_path", "full_bank"):
@@ -260,9 +280,10 @@ def main():
                 state.occ_host.reset(state.occ)
             occ = state.occ.tolist()
             row = {"mode": mode, "bank": bank, "dtype": str(dtype),
-                   "occ_at_start": occ, "card": smi, "weights": "trained",
-                   "steps": STEPS,
+                   "streams": b, "occ_at_start": occ, "card": smi,
+                   "weights": "trained", "steps": STEPS,
                    **measure(eng, state, frames[4:], mode)}
+            row["frames_per_s"] = 1e3 * b / row["unsynced_step_ms"]
             print(json.dumps(row), flush=True)
         del eng, state, fb
         torch.cuda.empty_cache()

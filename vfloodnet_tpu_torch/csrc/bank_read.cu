@@ -7,8 +7,9 @@
 // function returns cudaGetLastError().
 //
 // Shapes (row-major, contiguous):
-//   q          [P, DK]            query pixels of the current frame
-//   k          [obj, N, DK]       bank keys
+//   q          [B, P, DK]         query pixels of the current frame of B
+//                                 streams (B = 1: one plane for every object)
+//   k          [obj, N, DK]       bank keys; obj = B x (objects a stream)
 //   v          [obj, N, DV]       bank values
 //   valid      [obj, N] uint8     slot validity
 //   occ_bound  [1] int32 or NULL  occupancy bound, read on the device
@@ -23,6 +24,12 @@
 // valid mask still applies inside every visited chunk. The bound is read
 // from device memory so that a step never waits on the host. Without a
 // bound every one of the N slots is visited.
+//
+// Streams: the banks of B streams are folded along the object axis, and
+// object o reads query plane o / obj_per_q (obj_per_q = obj / B), so one
+// launch of each kernel serves every stream of a step (the JAX package
+// vmaps the Pallas kernels over the streams, pipelines/video_seg_batch.py).
+// The occupancy bound is one for every stream and object, as there.
 //
 // Arithmetic: 3xTF32 on the tensor cores (mma.sync.m16n8k8 .tf32), float32
 // accumulation. Each operand x is split as hi = trunc(x), lo = trunc(x - hi),
@@ -221,7 +228,7 @@ read_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const uint8_t* __restrict__ valid,
             const int* __restrict__ occ_bound, float* __restrict__ m_part,
             float* __restrict__ l_part, float* __restrict__ acc_part, int P,
-            int N, int chunk, int splits, float scale) {
+            int N, int obj_per_q, int chunk, int splits, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                       // [QT][KS]
   float* k_ring = q_s + QT * KS;           // 2 x [R_TN][KS]
@@ -243,6 +250,7 @@ read_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)obj * N * DK;
   const float* vb = v + (size_t)obj * N * DV;
   const uint8_t* okb = valid + (size_t)obj * N;
+  const float* qb = q + (size_t)(obj / obj_per_q) * P * DK;
 
   float acc[16][4];
 #pragma unroll
@@ -338,7 +346,7 @@ read_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // tile ahead of values: while iteration it computes, K[it + 2] and
     // V[it + 1] load into the stages that K[it] and V[it - 1] left.
     const int n_tiles = (hi - lo + R_TN - 1) / R_TN;
-    load_rows_async<R_THREADS, QT, DK, KS>(q_s, q, p0, P);
+    load_rows_async<R_THREADS, QT, DK, KS>(q_s, qb, p0, P);
     load_rows_async<R_THREADS, R_TN, DK, KS>(k_ring, kb, lo, n_real);
     load_rows_async<R_THREADS, R_TN, DV, VS>(v_ring, vb, lo, n_real);
     if (n_tiles > 1)
@@ -512,7 +520,7 @@ count_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const uint8_t* __restrict__ valid,
              const int* __restrict__ occ_bound,
              const float* __restrict__ log_thres, float* __restrict__ cnt,
-             int P, int N, int chunk, float scale) {
+             int P, int N, int obj_per_q, int chunk, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                        // [C_TN][KS]
   float* q_s = k_s + C_TN * KS;             // 2 x [QT][KS]
@@ -534,9 +542,10 @@ count_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const float* thr_b = log_thres + (size_t)obj * P;
+  const float* qb = q + (size_t)(obj / obj_per_q) * P * DK;
   load_rows_async<C_THREADS, C_TN, DK, KS>(k_s, k + (size_t)obj * N * DK, n0,
                                            min(n_visit, N));
-  load_rows_async<C_THREADS, QT, DK, KS>(q_s, q, 0, P);
+  load_rows_async<C_THREADS, QT, DK, KS>(q_s, qb, 0, P);
   cp_async_commit();
   for (int i = tid; i < QT; i += C_THREADS)
     thr_s[i] = i < P ? thr_b[i] : INFINITY;   // padded rows never hit
@@ -549,7 +558,8 @@ count_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int buf = it & 1;
     if (it + 1 < n_pt) {   // the other stage was released at the end of it - 1
       const int p1 = (it + 1) * QT;
-      load_rows_async<C_THREADS, QT, DK, KS>(q_s + (buf ^ 1) * QT * KS, q, p1, P);
+      load_rows_async<C_THREADS, QT, DK, KS>(q_s + (buf ^ 1) * QT * KS, qb, p1,
+                                              P);
       cp_async_commit();
       for (int i = tid; i < QT; i += C_THREADS)
         thr_s[(buf ^ 1) * QT + i] = p1 + i < P ? thr_b[p1 + i] : INFINITY;
@@ -609,15 +619,17 @@ int vft_bank_dims(int* dk, int* dv, int* read_tile, int* query_tile) {
 int vft_bank_read(const float* q, const float* k, const float* v,
                   const uint8_t* valid, const int* occ_bound, float* m_part,
                   float* l_part, float* acc_part, int P, int N, int obj_n,
-                  int chunk, int splits, float scale, void* stream) {
+                  int q_planes, int chunk, int splits, float scale,
+                  void* stream) {
+  if (q_planes < 1 || obj_n % q_planes != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = R_SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       read_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P + QT - 1) / QT, splits, obj_n);
   read_kernel<<<grid, R_THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, valid, occ_bound, m_part, l_part, acc_part, P, N, chunk,
-      splits, scale);
+      q, k, v, valid, occ_bound, m_part, l_part, acc_part, P, N,
+      obj_n / q_planes, chunk, splits, scale);
   return (int)cudaGetLastError();
 }
 
@@ -633,15 +645,17 @@ int vft_bank_combine(const float* m_part, const float* l_part,
 
 int vft_bank_count(const float* q, const float* k, const uint8_t* valid,
                    const int* occ_bound, const float* log_thres, float* cnt,
-                   int P, int N, int obj_n, int chunk, float scale,
-                   void* stream) {
+                   int P, int N, int obj_n, int q_planes, int chunk,
+                   float scale, void* stream) {
+  if (q_planes < 1 || obj_n % q_planes != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = C_SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + C_TN - 1) / C_TN, obj_n);
   count_kernel<<<grid, C_THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, valid, occ_bound, log_thres, cnt, P, N, chunk, scale);
+      q, k, valid, occ_bound, log_thres, cnt, P, N, obj_n / q_planes, chunk,
+      scale);
   return (int)cudaGetLastError();
 }
 

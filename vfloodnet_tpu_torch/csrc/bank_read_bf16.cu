@@ -9,13 +9,19 @@
 // them. The count adds into a cnt that the caller has zeroed.
 //
 // Shapes (row-major, contiguous):
-//   q          [P, DK] bf16         query pixels, cast to the bank's type
-//   k          [obj, N, DK] bf16    bank keys
+//   q          [B, P, DK] bf16      query pixels of B streams (B = 1: one
+//                                   plane for every object), cast to the
+//                                   bank's type
+//   k          [obj, N, DK] bf16    bank keys; obj = B x (objects a stream)
 //   v          [obj, N, DV] bf16    bank values
 //   valid      [obj, N] uint8       slot validity
 //   occ_bound  [1] int32 or NULL    occupancy bound, read on the device
 //   m_part, l_part [obj, S, P], acc_part [obj, S, P, DV] float32 (read)
 //   log_thres [obj, P] float32 -> cnt [obj, N] float32            (count)
+//
+// Streams: as in bank_read.cu, object o reads query plane o / obj_per_q;
+// the Q tensor map has B planes and its TMA copies take the plane as their
+// outer coordinate.
 //
 // Arithmetic: the contract of the Pallas kernels on a bf16 bank
 // (vfloodnet_tpu/ops/attention_pallas.py, mm_dtype = bf16): bf16 operands,
@@ -357,7 +363,8 @@ read_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                  const uint8_t* __restrict__ valid,
                  const int* __restrict__ occ_bound, float* __restrict__ m_part,
                  float* __restrict__ l_part, float* __restrict__ acc_part,
-                 int P, int N, int chunk, int splits, float scale) {
+                 int P, int N, int obj_per_q, int chunk, int splits,
+                 float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -393,8 +400,9 @@ read_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                  :: "n"(PRODUCER_REGS));
     if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(q_full, RB_Q_BYTES);
-      tma_load(q_s, &q_map, q_full, 0, p0, 0);
-      tma_load(q_s + QT * ROW_BYTES, &q_map, q_full, BOX_W, p0, 0);
+      tma_load(q_s, &q_map, q_full, 0, p0, obj / obj_per_q);
+      tma_load(q_s + QT * ROW_BYTES, &q_map, q_full, BOX_W, p0,
+               obj / obj_per_q);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % RB_STAGES, n0 = lo + it * RB_T;
         if (it >= RB_STAGES) mbar_wait(&empty[st], (it / RB_STAGES - 1) & 1);
@@ -617,7 +625,7 @@ count_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                   const int* __restrict__ occ_bound,
                   const float* __restrict__ log_thres,
                   float* __restrict__ cnt, int P, int N, int obj_n,
-                  int chunk, float scale) {
+                  int obj_per_q, int chunk, float scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -674,9 +682,9 @@ count_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
             mbar_wait(&q_empty[st], (qi / CB_QSTAGES - 1) & 1);
           unsigned char* q_t = q_ring + st * CB_Q_BYTES;
           mbar_expect_tx(&q_full[st], CB_Q_BYTES);
-          tma_load(q_t, &q_map, &q_full[st], 0, qt * QT, 0);
+          tma_load(q_t, &q_map, &q_full[st], 0, qt * QT, obj / obj_per_q);
           tma_load(q_t + QT * ROW_BYTES, &q_map, &q_full[st], BOX_W,
-                   qt * QT, 0);
+                   qt * QT, obj / obj_per_q);
         }
       }
     }
@@ -831,10 +839,11 @@ int vft_bf16_dims(int* dk, int* dv, int* read_tile, int* query_tile) {
 int vft_bank_read_bf16(const void* q, const void* k, const void* v,
                        const uint8_t* valid, const int* occ_bound,
                        float* m_part, float* l_part, float* acc_part, int P,
-                       int N, int obj_n, int chunk, int splits, float scale,
-                       void* stream) {
+                       int N, int obj_n, int q_planes, int chunk, int splits,
+                       float scale, void* stream) {
+  if (q_planes < 1 || obj_n % q_planes != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
-  int err = make_map(&q_map, q, DK, P, 1, QT);
+  int err = make_map(&q_map, q, DK, P, q_planes, QT);
   if (err == 0) err = make_map(&k_map, k, DK, N, obj_n, RB_T);
   if (err == 0) err = make_map(&v_map, v, DV, N, obj_n, RB_T);
   if (err != 0) return err;
@@ -845,16 +854,17 @@ int vft_bank_read_bf16(const void* q, const void* k, const void* v,
   const dim3 grid((P + QT - 1) / QT, splits, obj_n);
   read_bf16_kernel<<<grid, THREADS, RB_SMEM_BYTES, (cudaStream_t)stream>>>(
       q_map, k_map, v_map, valid, occ_bound, m_part, l_part, acc_part, P, N,
-      chunk, splits, scale);
+      obj_n / q_planes, chunk, splits, scale);
   return (int)cudaGetLastError();
 }
 
 int vft_bank_count_bf16(const void* q, const void* k, const uint8_t* valid,
                         const int* occ_bound, const float* log_thres,
-                        float* cnt, int P, int N, int obj_n, int chunk,
-                        float scale, void* stream) {
+                        float* cnt, int P, int N, int obj_n, int q_planes,
+                        int chunk, float scale, void* stream) {
+  if (q_planes < 1 || obj_n % q_planes != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap q_map, k_map;
-  int err = make_map(&q_map, q, DK, P, 1, QT);
+  int err = make_map(&q_map, q, DK, P, q_planes, QT);
   if (err == 0) err = make_map(&k_map, k, DK, N, obj_n, 256);
   if (err != 0) return err;
   int dev = 0, sms = 0;
@@ -868,8 +878,8 @@ int vft_bank_count_bf16(const void* q, const void* k, const uint8_t* valid,
         CB_SMEM_BYTES);
   if (err != 0) return err;
   count_bf16_kernel<<<sms, THREADS, CB_SMEM_BYTES, (cudaStream_t)stream>>>(
-      q_map, k_map, valid, occ_bound, log_thres, cnt, P, N, obj_n, chunk,
-      scale);
+      q_map, k_map, valid, occ_bound, log_thres, cnt, P, N, obj_n,
+      obj_n / q_planes, chunk, scale);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,13 @@ for two objects), rounded up to a multiple of 128 and, above one occupancy
 chunk, down to a multiple of it: 98,304 slots per object at the default
 budget of 250,000 with two objects.
 
+One state may hold the banks of B streams, folded along the object axis
+(rows ``[stream 0's objects, stream 1's, ...]``, ``B x obj_n`` of them): the
+batch engine's layout, which the read kernels take in one launch. The
+transition methods treat every row alike, along one leading axis, and the
+occupancy bound is one for all rows, as the JAX batch engine shares one
+bound across its streams.
+
 The transition methods update the state's tensors in place (so a CUDA
 graph that captured them keeps reading the live bank) and return it. None
 of them waits for the host: ``occ`` stays on the device, and the host keeps
@@ -88,14 +95,15 @@ class OccupancyBound:
 
 @dataclasses.dataclass
 class FeatureBankState:
-    keys: torch.Tensor       # [obj_n, cap, dk] in the bank's dtype
-    values: torch.Tensor     # [obj_n, cap, dv] in the bank's dtype
-    valid: torch.Tensor      # [obj_n, cap] bool
-    birth: torch.Tensor      # [obj_n, cap] f32, frame the slot was written
-    usage: torch.Tensor      # [obj_n, cap] f32, accumulated log usage
-    peak_n: torch.Tensor     # [obj_n] i32, most occupied slots seen
-    replace_n: torch.Tensor  # [obj_n] i32, evictions so far
-    occ: torch.Tensor        # [obj_n] i32, occupancy of the dense prefix
+    # rows: obj_n, or B x obj_n for B streams folded along the object axis
+    keys: torch.Tensor       # [rows, cap, dk] in the bank's dtype
+    values: torch.Tensor     # [rows, cap, dv] in the bank's dtype
+    valid: torch.Tensor      # [rows, cap] bool
+    birth: torch.Tensor      # [rows, cap] f32, frame the slot was written
+    usage: torch.Tensor      # [rows, cap] f32, accumulated log usage
+    peak_n: torch.Tensor     # [rows] i32, most occupied slots seen
+    replace_n: torch.Tensor  # [rows] i32, evictions so far
+    occ: torch.Tensor        # [rows] i32, occupancy of the dense prefix
     # host upper bound of occ (a FeatureBank makes one with each state)
     occ_host: Optional[OccupancyBound] = None
 
@@ -133,8 +141,10 @@ class FeatureBank:
         self.dtype = dtype
         self.device = resolve_device(device)
 
-    def empty(self) -> FeatureBankState:
-        o, cap, dev = self.obj_n, self.class_budget, self.device
+    def empty(self, streams: int = 1) -> FeatureBankState:
+        """An empty state for ``streams`` streams (``streams x obj_n``
+        rows)."""
+        o, cap, dev = self.obj_n * streams, self.class_budget, self.device
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         return FeatureBankState(
@@ -153,12 +163,16 @@ class FeatureBank:
     def init_bank(self, keys: torch.Tensor, values: torch.Tensor,
                   frame_idx: float = 0.0) -> FeatureBankState:
         """Seed the bank with the first frame's features, keys [obj_n, P,
-        dk] and values [obj_n, P, dv] (reference FeatureBank.py:27-36)."""
-        p = keys.shape[1]
+        dk] and values [obj_n, P, dv] (reference FeatureBank.py:27-36), or
+        those of the first frames of B streams, [B x obj_n, P, d]."""
+        rows, p = keys.shape[:2]
         if p > self.class_budget:
             raise ValueError(f"first-frame features ({p}) exceed per-class "
                              f"budget ({self.class_budget})")
-        state = self.empty()
+        if rows % self.obj_n:
+            raise ValueError(f"{rows} rows of features are not whole "
+                             f"streams of {self.obj_n} objects")
+        state = self.empty(rows // self.obj_n)
         state.keys[:, :p] = keys.to(self.dtype)
         state.values[:, :p] = values.to(self.dtype)
         state.valid[:, :p] = True
@@ -178,21 +192,19 @@ class FeatureBank:
         k = min(m, n)
         dev = state.keys.device
         fi = device_scalar(frame_idx, torch.float32, dev)
-        rank = torch.arange(m, device=dev)
-        for o in range(state.obj_n):
-            occ = state.occ[o]
-            age = torch.clamp(fi - state.birth[o], min=1.0)
-            prio = torch.where(state.valid[o], state.usage[o] / age,
-                               torch.full_like(age, 1e30))
-            victim = lfu_victims(prio, k)[torch.clamp(rank - (n - occ), 0,
-                                                      k - 1)]
-            victim = torch.where(prio[victim] < 1e30, victim,
-                                 torch.full_like(victim, n))
-            dest = torch.where(rank < n - occ, occ + rank, victim)
-            scatter_rows(dest, dest < n, (
-                (state.keys[o], keys[o]), (state.values[o], values[o]),
-                (state.birth[o], fi), (state.usage[o], 20.0),  # :46
-                (state.valid[o], True)))
+        rank = torch.arange(m, device=dev)[None, :]
+        occ = state.occ[:, None]
+        age = torch.clamp(fi - state.birth, min=1.0)
+        prio = torch.where(state.valid, state.usage / age,
+                           torch.full_like(age, 1e30))
+        victim = lfu_victims(prio, k).gather(
+            1, torch.clamp(rank - (n - occ), 0, k - 1))
+        victim = torch.where(prio.gather(1, victim) < 1e30, victim,
+                             torch.full_like(victim, n))
+        dest = torch.where(rank < n - occ, occ + rank, victim)
+        scatter_rows(dest, dest < n, (
+            (state.keys, keys), (state.values, values), (state.birth, fi),
+            (state.usage, 20.0), (state.valid, True)))  # :46
         state.occ.clamp_(max=n - m).add_(m)
         torch.maximum(state.peak_n, state.occ, out=state.peak_n)
         self.note_update(state, m)
@@ -229,26 +241,21 @@ class FeatureBank:
         graph (whose replays then hold for every bound of the same
         :meth:`plan`). The caller calls :meth:`note_update` after it has
         run or been replayed."""
-        fi = device_scalar(frame_idx, torch.float32, state.keys.device)
-        occ_new, evicted = [], []
-        for o in range(state.obj_n):
-            occ_o, stats = bank_merge_append(
-                state.keys[o], state.values[o], state.valid[o],
-                state.birth[o], state.usage[o],
-                new_keys[o].to(self.dtype), new_values[o].to(self.dtype),
-                fi, state.occ[o], occ_bound, update_rate=self.update_rate,
-                thres_close=self.thres_close)
-            occ_new.append(occ_o)
-            evicted.append(stats.evicted_n)
-        state.occ.copy_(torch.stack(occ_new))
-        state.replace_n.add_(torch.stack(evicted))
+        occ_new, stats = bank_merge_append(
+            state.keys, state.values, state.valid, state.birth, state.usage,
+            new_keys.to(self.dtype), new_values.to(self.dtype), frame_idx,
+            state.occ, occ_bound, update_rate=self.update_rate,
+            thres_close=self.thres_close)
+        state.occ.copy_(occ_new)
+        state.replace_n.add_(stats.evicted_n)
         torch.maximum(state.peak_n, state.occ, out=state.peak_n)
         return state
 
     def update(self, state: FeatureBankState, new_keys: torch.Tensor,
                new_values: torch.Tensor, frame_idx) -> FeatureBankState:
-        """Merge, append or evict one frame of features, new_keys [obj_n,
-        P, dk] and new_values [obj_n, P, dv] (FeatureBank.py:53-115)."""
+        """Merge, append or evict one frame of features, new_keys [rows,
+        P, dk] and new_values [rows, P, dv] (FeatureBank.py:53-115), every
+        row of the state at once."""
         self.update_device(state, new_keys, new_values, frame_idx,
                            state.occ_host.bound)
         self.note_update(state, new_keys.shape[1])

@@ -10,6 +10,10 @@ refinement.
 The public methods keep the JAX package's layout: frames NHWC in [0, 1],
 masks [obj_n, H, W], keys and values [n, P, d] with P = h16 * w16 in
 row-major order, the bank [obj_n, N, d]. Inside, the convolutions run NCHW.
+:meth:`AFBURR.memorize_streams` and :meth:`AFBURR.segment_streams` run B
+independent streams as one batch, their banks folded along the object axis
+([B x obj_n, N, d], stream-major): what the JAX package's batch engine gets
+by vmapping ``memorize`` and ``segment`` over its streams.
 
 ``AFBURR(dtype=torch.bfloat16)`` computes in bf16 with the JAX package's
 casts: the frame is normalised in float32 and cast at the encoders, the
@@ -203,12 +207,19 @@ class AFBURR(nn.Module):
     def memorize(self, frame: torch.Tensor, mask: torch.Tensor):
         """frame [H, W, 3] in [0, 1], mask [obj_n, H, W] ->
         (k4 [obj_n, P, dk], v4 [obj_n, P, dv])."""
-        obj_n = mask.shape[0]
-        frame, _ = pad_divide_by(frame[None], 16)
-        mask, _ = pad_divide_by(mask[..., None], 16)
-        frames = frame.permute(0, 3, 1, 2).expand(obj_n, -1, -1, -1)
-        mask = mask.permute(0, 3, 1, 2).to(self.dtype)
-        r4, _ = self.encoder_m(frames, mask, torch.clamp(1.0 - mask, 0.0, 1.0))
+        return self.memorize_streams(frame[None], mask[None])
+
+    def memorize_streams(self, frames: torch.Tensor, masks: torch.Tensor):
+        """:meth:`memorize` of B streams as one batch: frames [B, H, W, 3]
+        in [0, 1], masks [B, obj_n, H, W] -> (k4 [B x obj_n, P, dk], v4
+        [B x obj_n, P, dv]), stream-major."""
+        obj_n = masks.shape[1]
+        frames, _ = pad_divide_by(frames, 16)
+        masks, _ = pad_divide_by(masks.flatten(0, 1)[..., None], 16)
+        frames = frames.permute(0, 3, 1, 2).repeat_interleave(obj_n, dim=0)
+        masks = masks.permute(0, 3, 1, 2).to(self.dtype)
+        r4, _ = self.encoder_m(frames, masks,
+                               torch.clamp(1.0 - masks, 0.0, 1.0))
         return self.keyval_r4(r4)
 
     def encode_query(self, frames: torch.Tensor):
@@ -251,3 +262,25 @@ class AFBURR(nn.Module):
         score = self.decode_with_memory(torch.stack(mems), v4, skips, hw16,
                                         pad)
         return score, usage
+
+    def segment_streams(self, frames: torch.Tensor, bank_keys: torch.Tensor,
+                        bank_values: torch.Tensor, bank_valid: torch.Tensor,
+                        bank_occ: Optional[torch.Tensor] = None):
+        """One frame of each of B independent streams: frames [B, H, W,
+        3]; the B banks folded along the object axis, bank [B x obj_n, N,
+        d] and bank_valid [B x obj_n, N]; ``bank_occ`` [B x obj_n] int32
+        bounds the read at the largest occupancy of all of them. The B
+        frames are encoded and decoded as one batch, and every stream's
+        bank is read with its own frame's query in one read (one launch of
+        each kernel on the card) -> (score log-odds [B, obj_n, H, W], usage
+        counts [B x obj_n, N])."""
+        k4, v4, skips, hw16, pad = self.encode_query(frames)
+        occ_bound = None if bank_occ is None else bank_occ.max()
+        mem, cnt = bank_attention_read(bank_keys, bank_values, bank_valid,
+                                       k4.float().contiguous(),
+                                       thres=self.thres_valid,
+                                       occ_bound=occ_bound)
+        bs = frames.shape[0]
+        mem = mem.reshape((bs, -1) + mem.shape[1:])
+        score = self.decode_with_memory(mem, v4, skips, hw16, pad)
+        return score, cnt

@@ -21,6 +21,14 @@ The plain versions of the kernels are ``_read_occ_sweep`` (read),
 ``combine_partials`` (combine) and ``_count_occ_sweep`` (count). A CUDA
 tensor never takes a plain version.
 
+Streams: the read takes the query of one stream, q [P, dk], read by every
+object's bank, or of B streams, q [B, P, dk], with the B streams' banks
+folded along the object axis (obj = B x objects a stream); object o reads
+plane :func:`query_plane`, o // (obj / B), and one occupancy bound serves
+every stream, as the JAX package's batch engine shares one bound across
+its vmapped streams. On the card that is one launch of each kernel; the
+plain versions sweep object by object on the plane of each.
+
 A bank is float32 or bfloat16. On a bf16 bank every variant follows the
 contract of the JAX package's Pallas kernels (``attention_pallas.py``,
 ``mm_dtype = bf16``), which the bf16 CUDA kernels also keep: q is cast to
@@ -217,6 +225,17 @@ def combine_partials(m_s, l_s, acc_s, thres):
     return mem, m, l, math.log(thres) + torch.log(l) + m
 
 
+def query_plane(q: torch.Tensor, o: int, obj_n: int) -> torch.Tensor:
+    """The query that object ``o`` of an ``obj_n``-object bank reads: q
+    itself when it is [P, dk], plane o // (obj_n / B) of q [B, P, dk]."""
+    if q.ndim == 2:
+        return q
+    if obj_n % q.shape[0]:
+        raise ValueError(f"{q.shape[0]} query planes do not divide "
+                         f"{obj_n} objects")
+    return q[o // (obj_n // q.shape[0])]
+
+
 def read_plain(keys, values, valid, q, thres=1e-3, chunk=4096,
                occ_bound: Optional[int] = None):
     """Single-object plain read with the JAX package's variant selection:
@@ -238,12 +257,15 @@ def bank_attention_read(keys: torch.Tensor, values: torch.Tensor,
 
     Args:
       keys [obj, N, dk], values [obj, N, dv], valid [obj, N] bool,
-      q [P, dk] query pixels; ``thres``: usage probability threshold
+      q [P, dk] query pixels, or [B, P, dk] for B streams whose banks are
+      folded along the object axis (see the module's note); ``thres``:
+      usage probability threshold
       (reference Matcher.thres_valid = 1e-3); ``chunk``: bank chunk of the
       plain chunked read; ``occ_bound``: optional bound on the highest
       valid slot + 1 over all objects (an int, or a 0-d int32 tensor on the
-      bank's device, which the kernels read without a host sync). With a
-      bound, only ``ceil(occ_bound / OCC_CHUNK)`` chunks are visited.
+      bank's device, which the kernels read without a host sync), one for
+      every stream and object. With a bound, only ``ceil(occ_bound /
+      OCC_CHUNK)`` chunks are visited.
 
     The bank is float32 or bfloat16 (keys and values of one dtype); on a
     bf16 bank q is cast to bf16, as the Pallas kernels cast it.
@@ -256,8 +278,9 @@ def bank_attention_read(keys: torch.Tensor, values: torch.Tensor,
         return _kernel_read(keys, values, valid, q.contiguous(), thres,
                             occ_bound)
     bound = None if occ_bound is None else int(occ_bound)
-    outs = [read_plain(keys[o], values[o], valid[o], q, thres, chunk, bound)
-            for o in range(keys.shape[0])]
+    obj_n = keys.shape[0]
+    outs = [read_plain(keys[o], values[o], valid[o], query_plane(q, o, obj_n),
+                       thres, chunk, bound) for o in range(obj_n)]
     return (torch.stack([o[0] for o in outs]).to(values.dtype),
             torch.stack([o[1] for o in outs]))
 

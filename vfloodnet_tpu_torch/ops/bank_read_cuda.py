@@ -14,8 +14,12 @@ an unchanged tree is reused. A build writes to a private temporary name
 and renames it into place, so there is no lock file to go stale.
 
 The read and the count dispatch on the bank's dtype (float32 or bf16); any
-other dtype raises. Each wrapper checks its tensors, allocates its outputs
-(and the read's per-segment partials) with ``torch.empty``, launches on
+other dtype raises. Both take the query of one stream, q [P, dk], read by
+every object of the bank, or of B streams, q [B, P, dk], with the banks of
+the B streams folded along the object axis (obj = B x objects a stream;
+object o reads plane o // (obj / B)): one launch serves every stream.
+Each wrapper checks its tensors, allocates its outputs (and the read's
+per-segment partials) with ``torch.empty``, launches on
 PyTorch's current stream, raises if the launch reports an error, and adds
 one to its kernel's entry in :data:`launches`.
 """
@@ -144,11 +148,12 @@ def _load(name: str = "bank_read") -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib = ctypes.CDLL(paths["bank_read"])
         lib.vft_bank_read.argtypes = [p, p, p, p, p, p, p, p,
-                                      i, i, i, i, i, f, p]
+                                      i, i, i, i, i, i, f, p]
         lib.vft_bank_read.restype = i
         lib.vft_bank_combine.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
         lib.vft_bank_combine.restype = i
-        lib.vft_bank_count.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.vft_bank_count.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f,
+                                       p]
         lib.vft_bank_count.restype = i
         lib.vft_bank_dims.argtypes = [ctypes.POINTER(i)] * 4
         lib.vft_bank_dims.restype = i
@@ -194,6 +199,17 @@ def _bank_dtype(keys: torch.Tensor) -> torch.dtype:
     return keys.dtype
 
 
+def _query_planes(q: torch.Tensor, obj_n: int) -> int:
+    """Query planes B of q [P, dk] (1) or [B, P, dk]; B must divide the
+    bank's objects."""
+    planes = 1 if q.ndim == 2 else q.shape[0]
+    if q.ndim not in (2, 3) or planes < 1 or obj_n % planes:
+        raise ValueError(f"q must be [P, {DK}] or [B, P, {DK}] with B "
+                         f"dividing the bank's {obj_n} objects, got "
+                         f"{tuple(q.shape)}")
+    return planes
+
+
 def _occ_ptr(occ_bound, device) -> Optional[int]:
     if occ_bound is None:
         return None
@@ -236,7 +252,8 @@ def default_splits(obj_n: int, p: int, sms: int) -> int:
     obj_n x ceil(p / QUERY_TILE) x S one-block-per-SM blocks leaves the
     least of the last wave idle (the smallest such S). At the main path's
     2 objects x 26 query tiles on 132 SMs that is S = 5 (260 blocks, 98.5 %
-    of two waves), whatever the bank's occupancy."""
+    of two waves), whatever the bank's occupancy; at 4 streams of 2 objects
+    (8 objects folded) S = 5 too (1,040 blocks, 98.5 % of eight waves)."""
     tiles = obj_n * -(-p // QUERY_TILE)
 
     def fill(s):
@@ -250,21 +267,23 @@ def bank_read_partials(q: torch.Tensor, keys: torch.Tensor,
                        values: torch.Tensor, valid: torch.Tensor,
                        occ_bound: Optional[torch.Tensor], chunk: int,
                        splits: int):
-    """Read kernel over ``splits`` segments of the visited bank: q [P, dk],
-    keys [obj, N, dk], values [obj, N, dv] of one dtype (float32: the
+    """Read kernel over ``splits`` segments of the visited bank: q [P, dk]
+    or [B, P, dk] (see the module's note on streams), keys [obj, N, dk],
+    values [obj, N, dv] of one dtype (float32: the
     3xTF32 ``read_kernel``; bfloat16: ``read_bf16_kernel``), valid
     [obj, N] bool, occ_bound [1] int32 on the device or None -> (m_s
     [obj, S, P], l_s [obj, S, P], acc_s [obj, S, P, dv]), float32; acc_s is
     not normalised."""
     obj_n, n, _ = keys.shape
-    p = q.shape[0]
+    p = q.shape[-2]
     dev = keys.device
     if dev.type != "cuda" or p == 0 or n == 0:
         raise ValueError("bank_read needs CUDA tensors with P, N > 0")
     if not 1 <= splits <= 65535:
         raise ValueError(f"splits must be in 1..65535, got {splits}")
     dt = _bank_dtype(keys)
-    _check(q, "q", dt, (p, DK), dev)
+    planes = _query_planes(q, obj_n)
+    _check(q, "q", dt, tuple(q.shape[:-2]) + (p, DK), dev)
     _check(keys, "keys", dt, (obj_n, n, DK), dev)
     _check(values, "values", dt, (obj_n, n, DV), dev)
     _check(valid, "valid", torch.bool, (obj_n, n), dev)
@@ -278,8 +297,9 @@ def bank_read_partials(q: torch.Tensor, keys: torch.Tensor,
         err = launch(
             q.data_ptr(), keys.data_ptr(), values.data_ptr(),
             valid.data_ptr(), _occ_ptr(occ_bound, dev), m_s.data_ptr(),
-            l_s.data_ptr(), acc_s.data_ptr(), p, n, obj_n, chunk, splits,
-            1.0 / math.sqrt(DK), torch.cuda.current_stream().cuda_stream)
+            l_s.data_ptr(), acc_s.data_ptr(), p, n, obj_n, planes, chunk,
+            splits, 1.0 / math.sqrt(DK),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     launches[name] += 1
     return m_s, l_s, acc_s
@@ -319,25 +339,28 @@ def bank_read(q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
     [obj, P]), all float32 whatever the bank's dtype."""
     sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
     parts = bank_read_partials(q, keys, values, valid, occ_bound, chunk,
-                               default_splits(keys.shape[0], q.shape[0], sms))
+                               default_splits(keys.shape[0], q.shape[-2],
+                                              sms))
     return bank_read_combine(*parts, thres)
 
 
 def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
                occ_bound: Optional[torch.Tensor], log_thres: torch.Tensor,
                chunk: int) -> torch.Tensor:
-    """Count kernel: q [P, dk] and keys [obj, N, dk] of one dtype (float32:
+    """Count kernel: q [P, dk] or [B, P, dk] and keys [obj, N, dk] of one
+    dtype (float32:
     ``count_kernel``; bfloat16: ``count_bf16_kernel``, one block per SM
     over the items of :func:`count_splits`), valid [obj, N]
     bool, occ_bound [1] int32 or None, log_thres [obj, P] float32 -> cnt
     [obj, N] float32."""
     obj_n, n, _ = keys.shape
-    p = q.shape[0]
+    p = q.shape[-2]
     dev = keys.device
     if dev.type != "cuda" or p == 0 or n == 0:
         raise ValueError("bank_count needs CUDA tensors with P, N > 0")
     dt = _bank_dtype(keys)
-    _check(q, "q", dt, (p, DK), dev)
+    planes = _query_planes(q, obj_n)
+    _check(q, "q", dt, tuple(q.shape[:-2]) + (p, DK), dev)
     _check(keys, "keys", dt, (obj_n, n, DK), dev)
     _check(valid, "valid", torch.bool, (obj_n, n), dev)
     log_thres = log_thres.contiguous()
@@ -353,7 +376,7 @@ def bank_count(q: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
         err = launch(
             q.data_ptr(), keys.data_ptr(), valid.data_ptr(),
             _occ_ptr(occ_bound, dev), log_thres.data_ptr(), cnt.data_ptr(),
-            p, n, obj_n, chunk, 1.0 / math.sqrt(DK),
+            p, n, obj_n, planes, chunk, 1.0 / math.sqrt(DK),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     launches[name] += 1

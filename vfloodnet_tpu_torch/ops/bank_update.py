@@ -20,7 +20,10 @@ index stay on the device, and the only host inputs are a bound on the
 occupancy (how many chunks the match visits and whether LFU victims are
 selected; a loose bound gives the same result, as in the JAX package).
 The bank tensors are updated in place (the JAX package returns new arrays;
-here that would copy the 0.5 GB bank every frame).
+here that would copy the 0.5 GB bank every frame). The update runs every
+object of a bank, and the objects of several streams, along one leading
+axis of the same ops (the JAX package vmaps it over objects and streams):
+one set of launches a step, however many banks.
 
 - Merge means are taken over the incoming features only (no bank-sized
   temporaries), as ``_sorted_group_means`` does, as one product of the
@@ -44,6 +47,7 @@ EMA in float32 and casts on the scatter.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -79,25 +83,27 @@ def _safe_normalize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _best_match(keys, valid, normed_new, occ_bound: int):
-    """Best cosine match of each new feature among the valid slots ->
-    (best_corr [M], best_idx [M]); -2 and slot 0 when there is none. Only
-    the :func:`match_chunks` of the host bound ``occ_bound`` are visited."""
-    n = keys.shape[0]
+    """Best cosine match of each new feature among the valid slots of its
+    row: keys [..., N, dk], valid [..., N], normed_new [..., M, dk] ->
+    (best_corr [..., M], best_idx [..., M]); -2 and slot 0 when there is
+    none. Only the :func:`match_chunks` of the host bound ``occ_bound``
+    are visited."""
+    n = keys.shape[-2]
     chunk = OCC_CHUNK if n > OCC_CHUNK else n
-    m = normed_new.shape[0]
-    best_corr = torch.full((m,), -2.0, dtype=torch.float32,
+    lead_m = normed_new.shape[:-1]
+    best_corr = torch.full(lead_m, -2.0, dtype=torch.float32,
                            device=keys.device)
-    best_idx = torch.zeros((m,), dtype=torch.int64, device=keys.device)
+    best_idx = torch.zeros(lead_m, dtype=torch.int64, device=keys.device)
     for i in range(match_chunks(n, occ_bound)):
-        k_c = keys[i * chunk:(i + 1) * chunk]
-        ok = valid[i * chunk:(i + 1) * chunk]
-        mag = torch.linalg.vector_norm(k_c.float(), dim=1)
+        k_c = keys[..., i * chunk:(i + 1) * chunk, :]
+        ok = valid[..., i * chunk:(i + 1) * chunk]
+        mag = torch.linalg.vector_norm(k_c.float(), dim=-1)
         inv = torch.where(ok, 1.0 / mag.clamp_min(1e-12),
                           torch.zeros_like(mag))
-        corr = (normed_new.to(keys.dtype) @ k_c.T) * inv[None, :].to(
-            keys.dtype)
-        corr = torch.where(ok[None, :], corr, torch.full_like(corr, -2.0))
-        local_val, local_idx = corr.max(dim=1)
+        corr = (normed_new.to(keys.dtype) @ k_c.transpose(-1, -2)) * \
+            inv.unsqueeze(-2).to(keys.dtype)
+        corr = torch.where(ok.unsqueeze(-2), corr, torch.full_like(corr, -2.0))
+        local_val, local_idx = corr.max(dim=-1)
         local_val = local_val.float()
         better = local_val > best_corr
         best_idx = torch.where(better, local_idx + i * chunk, best_idx)
@@ -107,55 +113,71 @@ def _best_match(keys, valid, normed_new, occ_bound: int):
 
 def _group_means(datas: Sequence[torch.Tensor], idx: torch.Tensor,
                  mask: torch.Tensor):
-    """Means of the rows of each [M, d] ``datas`` over the masked rows
-    that share their ``idx``, and one representative row per group (its
-    first) -> (means, rep [M] bool). A group's mean sits on every row of
-    the group; the sum is the product of the [M, M] same-group matrix with
-    the rows, in float32."""
-    m = idx.shape[0]
-    same = (idx[:, None] == idx[None, :]) & mask[:, None] & mask[None, :]
+    """Means of the rows of each [..., M, d] ``datas`` over the masked rows
+    that share their ``idx`` [..., M], and one representative row per
+    group (its first) -> (means, rep [..., M] bool). A group's mean sits on
+    every row of the group; the sum is the product of the [M, M] same-group
+    matrix with the rows, in float32."""
+    m = idx.shape[-1]
+    same = (idx.unsqueeze(-1) == idx.unsqueeze(-2)) & mask.unsqueeze(-1) & \
+        mask.unsqueeze(-2)
     rows = torch.arange(m, device=idx.device)
-    earlier = (same & (rows[None, :] < rows[:, None])).any(dim=1)
+    earlier = (same & (rows[None, :] < rows[:, None])).any(dim=-1)
     rep = mask & ~earlier
     weight = same.float()
-    count = weight.sum(dim=1, keepdim=True).clamp_min(1.0)
+    count = weight.sum(dim=-1, keepdim=True).clamp_min(1.0)
     return [(weight @ d.float()) / count for d in datas], rep
 
 
 def scatter_rows(dest: torch.Tensor, keep: torch.Tensor, pairs) -> None:
-    """For each ``(bank [N, ...], rows)`` of ``pairs``: ``bank[dest[i]] =
-    rows[i]`` for the rows with ``keep[i]``; ``rows`` is [M, ...] or a
-    value for every row (a number or a 0-d tensor). The kept ``dest`` are
+    """For each ``(bank [..., N, ...], rows)`` of ``pairs``: ``bank[...,
+    dest[..., i]] = rows[..., i]`` for the rows with ``keep[..., i]``;
+    dest and keep are [..., M] with the bank's leading axes (none for one
+    object's bank), ``rows`` is [..., M, ...] or a value for every row (a
+    number or a 0-d tensor). The kept ``dest`` of a leading index are
     distinct. Every row writes: a dropped one repeats the first kept row
-    (the same slot and the same bits), or rewrites slot 0 with its own
-    value when no row is kept, so the result is that of the kept rows
-    alone, with static shapes and no host sync."""
-    any_keep = keep.any()
-    # [1] index tensors: indexing with a 0-d tensor would read it on the
-    # host
-    first = torch.argmax(keep.to(torch.uint8)).reshape(1)
-    first_dest = dest.index_select(0, first)
+    of its leading index (the same slot and the same bits), or rewrites
+    that index's slot 0 with its own value when none is kept, so the
+    result is that of the kept rows alone, with static shapes, no host
+    sync and one write per bank for every leading index."""
+    lead, m = dest.shape[:-1], dest.shape[-1]
+    nl = len(lead)
+    any_keep = keep.any(dim=-1, keepdim=True)
+    # index tensors with a kept axis: indexing with a 0-d tensor would
+    # read it on the host
+    first = torch.argmax(keep.to(torch.uint8), dim=-1, keepdim=True)
+    first_dest = dest.gather(-1, first)
     d = torch.where(keep, dest, torch.where(any_keep, first_dest,
                                             torch.zeros_like(first_dest)))
-    m = dest.shape[0]
+    # the leading axes folded into the slot axis of each bank's view
+    n = pairs[0][0].shape[nl]
+    flat = (d + n * torch.arange(math.prod(lead), device=d.device).reshape(
+        lead + (1,))).reshape(-1)
     for bank, rows in pairs:
+        rest = bank.shape[nl + 1:]
         if not torch.is_tensor(rows) or rows.ndim == 0:
             rows = device_scalar(rows, bank.dtype, bank.device).expand(
-                (m,) + bank.shape[1:])
+                lead + (m,) + rest)
         rows = rows.to(bank.dtype)
-        fill = torch.where(any_keep, rows.index_select(0, first), bank[:1])
-        k = keep.reshape((m,) + (1,) * (rows.ndim - 1))
-        bank.index_put_((d,), torch.where(k, rows, fill))
+        ones = (1,) * len(rest)
+        fill = torch.where(
+            any_keep.reshape(lead + (1,) + ones),
+            rows.gather(nl, first.reshape(lead + (1,) + ones).expand(
+                lead + (1,) + rest)),
+            bank.narrow(nl, 0, 1))
+        vals = torch.where(keep.reshape(lead + (m,) + ones), rows, fill)
+        bank.view((-1,) + rest).index_put_((flat,),
+                                           vals.reshape((-1,) + rest))
 
 
 def lfu_victims(prio: torch.Tensor, k: int) -> torch.Tensor:
-    """The ``k`` slots of lowest ``prio`` (>= 0) in ascending order, ties
-    to the lower slot: the victims of the JAX package's exact ``top_k``,
-    slot by slot."""
-    n = prio.shape[0]
+    """The ``k`` slots of lowest ``prio`` [..., N] (>= 0) of each row in
+    ascending order, ties to the lower slot: the victims of the JAX
+    package's exact ``top_k``, slot by slot."""
+    n = prio.shape[-1]
     bits = (prio + 0.0).view(torch.int32).to(torch.int64)   # -0 -> +0
     key = (bits << 32) | torch.arange(n, device=prio.device)
-    return torch.topk(key, k, largest=False, sorted=True).indices
+    return torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
 
 
 def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
@@ -165,25 +187,36 @@ def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
                       occ_bound: int, update_rate: float = 0.1,
                       thres_close: float = 0.95
                       ) -> Tuple[torch.Tensor, BankUpdateStats]:
-    """One frame's update of one object's bank, in place.
+    """One frame's update of one object's bank, or of R banks at once
+    (the objects of one or of several streams, along one leading axis),
+    in place.
 
     Args:
       keys [N, dk], values [N, dv], valid [N] bool, birth [N] f32 (frame a
       slot was written), usage [N] f32 (accumulated log usage): the bank,
-      modified in place. new_keys [M, dk], new_values [M, dv]: the frame's
-      features. frame_idx: the frame index, a number or a 0-d tensor on the
-      bank's device. occ: this object's occupancy (valid slots are [0,
-      occ)), a 0-d int32 tensor on the bank's device or an int.
+      modified in place; or each with a leading axis of R banks. new_keys
+      [(R,) M, dk], new_values [(R,) M, dv]: the frame's features.
+      frame_idx: the frame index, a number or a 0-d tensor on the bank's
+      device. occ: the occupancy (valid slots are [0, occ)), an int or a
+      0-d int32 tensor for one bank, an [R] int32 tensor for R.
       occ_bound: a host int at least the largest occupancy over all
-      objects; it bounds the match (:func:`match_chunks`) and opens the
+      banks; it bounds the match (:func:`match_chunks`) and opens the
       LFU selection when ``occ_bound + M > N``, as the JAX package's gate.
 
-    Returns: (new occupancy, stats), 0-d int32 tensors on the device.
+    Returns: (new occupancy, stats), int32 tensors on the device: 0-d for
+    one bank, [R] for R.
     """
-    n = keys.shape[0]
-    m = new_keys.shape[0]
     dev = keys.device
-    occ = device_scalar(occ, torch.int32, dev)
+    if keys.ndim == 2:      # one bank: a leading axis of one
+        occ = device_scalar(occ, torch.int32, dev).reshape(1)
+        occ_new, stats = bank_merge_append(
+            *(t[None] for t in (keys, values, valid, birth, usage, new_keys,
+                                new_values)), frame_idx, occ, occ_bound,
+            update_rate, thres_close)
+        return occ_new[0], BankUpdateStats(*(x[0] for x in stats))
+    r, n = keys.shape[:2]
+    m = new_keys.shape[1]
+    occ = occ.to(device=dev, dtype=torch.int32).reshape(r)
     frame_idx = device_scalar(frame_idx, torch.float32, dev)
     normed_new_k, _ = _safe_normalize(new_keys)
     normed_new_v, _ = _safe_normalize(new_values)
@@ -193,38 +226,42 @@ def bank_merge_append(keys: torch.Tensor, values: torch.Tensor,
     # Merge: mean of the features matched to each slot, EMA'd into it.
     (k_mean, v_mean), rep = _group_means((normed_new_k, normed_new_v),
                                          best_idx, merge_mask)
-    r = update_rate
+    rate = update_rate
     merged = []
     for bank, mean in ((keys, k_mean), (values, v_mean)):
-        old_dir, old_mag = _safe_normalize(bank[best_idx].float())
-        merged.append(old_mag * ((1.0 - r) * old_dir + r * mean))
-    protected = torch.zeros((n,), dtype=torch.bool, device=dev)
+        rows = bank.gather(1, best_idx[..., None].expand(-1, -1,
+                                                         bank.shape[-1]))
+        old_dir, old_mag = _safe_normalize(rows.float())
+        merged.append(old_mag * ((1.0 - rate) * old_dir + rate * mean))
+    protected = torch.zeros((r, n), dtype=torch.bool, device=dev)
     scatter_rows(best_idx, rep, ((keys, merged[0]), (values, merged[1]),
                                  (protected, True)))
 
     # Append at the prefix tail; LFU victims once the bank is full.
     append_mask = ~merge_mask
-    appended_n = append_mask.sum().to(torch.int32)
-    rank = torch.cumsum(append_mask.to(torch.int64), 0) - 1
-    free_n = n - occ
+    appended_n = append_mask.sum(dim=1).to(torch.int32)
+    rank = torch.cumsum(append_mask.to(torch.int64), 1) - 1
+    free_n = (n - occ)[:, None]
     k = min(m, n)
     if occ_bound + m > n:
         lfu = usage / torch.clamp(frame_idx - birth, min=1.0)
         prio = torch.where(valid & ~protected, lfu,
                            torch.full_like(lfu, 1e30))
-        victim = lfu_victims(prio, k)[torch.clamp(rank - free_n, 0, k - 1)]
-        victim = torch.where(prio[victim] < 1e30, victim,
+        victim = lfu_victims(prio, k).gather(
+            1, torch.clamp(rank - free_n, 0, k - 1))
+        victim = torch.where(prio.gather(1, victim) < 1e30, victim,
                              torch.full_like(victim, n))
     else:
         victim = torch.full_like(rank, n)
-    dest = torch.where(rank < free_n, occ + rank, victim)
+    dest = torch.where(rank < free_n, occ[:, None] + rank, victim)
     keep = append_mask & (dest < n)
     scatter_rows(dest, keep, ((keys, new_keys), (values, new_values),
                               (birth, frame_idx), (usage, 0.0),
                               (valid, True)))
     usage.clamp_(0.0, 1e5)   # reference FeatureBank.py:115
 
-    evicted_n = torch.minimum(torch.clamp(appended_n - free_n, min=0), occ)
+    evicted_n = torch.minimum(torch.clamp(appended_n - free_n[:, 0], min=0),
+                              occ)
     occ_new = torch.clamp(occ + appended_n, max=n)
-    return occ_new, BankUpdateStats(merge_mask.sum().to(torch.int32),
+    return occ_new, BankUpdateStats(merge_mask.sum(dim=1).to(torch.int32),
                                     appended_n, evicted_n.to(torch.int32))

@@ -126,12 +126,17 @@ def _cubic_taps(in_size: int, out_size: int, device: torch.device):
 
 
 def _bicubic_bf16(x: torch.Tensor, out_hw, h_ax: int, w_ax: int):
-    """Separable bicubic of a bf16 tensor: the H pass, then the W pass."""
+    """Separable bicubic of a bf16 tensor: the H pass, then the W pass.
+    Each pass makes the resized axis the last of a contiguous float32 copy,
+    so every other axis (streams, rows, channels) folds into the rows of
+    one product; a strided operand would make ``@`` a batched product of
+    [3, n_in] matrices, many times slower."""
     for ax, n_out in ((h_ax, out_hw[0]), (w_ax, out_hw[1])):
         if x.shape[ax] == n_out:
             continue
         taps = _cubic_taps(x.shape[ax], n_out, x.device)
-        y = x.movedim(ax, -1).float() @ taps
+        y = x.movedim(ax, -1).to(torch.float32,
+                                 memory_format=torch.contiguous_format) @ taps
         x = y.to(torch.bfloat16).movedim(-1, ax)
     return x
 

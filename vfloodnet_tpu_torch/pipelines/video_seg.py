@@ -7,8 +7,11 @@ and count kernels on the card), record usage, memorize, update the bank,
 bicubic-upsample the label to full size, clean it up to its largest
 connected component (the CUDA kernel of ``csrc/cc.cu`` on the card), and
 bit-pack it. On the card the step is one CUDA graph replay
-(:class:`VideoSegEngine`). The runner starts no thread pool: it enqueues
-frame t before it waits for frame t - 1's label.
+(:class:`VideoSegEngine`). By default the runner starts no thread pool:
+it enqueues frame t before it waits for frame t - 1's label; with
+``workers`` it decodes ahead and writes in pools (:mod:`.pools`). With
+``checkpoint_every`` it saves the bank every K frames, and a rerun resumes
+after the last checkpoint (:mod:`..memory.checkpoint`).
 
 Run as ``python -m vfloodnet_tpu_torch.pipelines.video_seg --test-path
 FRAMES --test-name NAME`` (the flags of ``test_video_seg.py``).
@@ -28,10 +31,12 @@ import torch.nn.functional as F
 
 from .. import ops
 from ..core import resolve_device
-from ..memory import FeatureBank, FeatureBankState
+from ..memory import (FeatureBank, FeatureBankState, load_bank_checkpoint,
+                      save_bank_checkpoint)
 from ..models import AFBURR
 from ..ops import bank_read_cuda, cc_cuda
 from .loaders import cast_floating_params
+from .pools import Prefetcher, make_pool
 
 
 def to_onehot(mask: np.ndarray, obj_n: int) -> np.ndarray:
@@ -45,11 +50,13 @@ def to_onehot(mask: np.ndarray, obj_n: int) -> np.ndarray:
 
 
 def pack_bits(label: torch.Tensor) -> torch.Tensor:
-    """Binary [H, W] uint8 label -> [H, ceil(W/8)] uint8, row-major and
-    most significant bit first, like ``np.packbits(..., axis=1)``."""
-    h, w = label.shape
+    """Binary [..., H, W] uint8 label -> [..., H, ceil(W/8)] uint8,
+    row-major and most significant bit first, like ``np.packbits(...,
+    axis=-1)``."""
+    w = label.shape[-1]
     wpad = -(-w // 8) * 8
-    bits = F.pad(label.to(torch.int32), (0, wpad - w)).reshape(h, wpad // 8, 8)
+    bits = F.pad(label.to(torch.int32), (0, wpad - w)).reshape(
+        label.shape[:-1] + (wpad // 8, 8))
     weights = 1 << torch.arange(7, -1, -1, dtype=torch.int32,
                                 device=label.device)
     return (bits * weights).sum(dim=-1).to(torch.uint8)
@@ -61,9 +68,11 @@ def unpack_bits(arr: np.ndarray, w: int) -> np.ndarray:
 
 
 def _dilate(x: torch.Tensor) -> torch.Tensor:
-    """One-cell 8-neighbour dilation of a binary [H, W] uint8 mask."""
-    return F.max_pool2d(x[None, None].float(), 3, stride=1,
-                        padding=1)[0, 0].to(x.dtype)
+    """One-cell 8-neighbour dilation of each binary map of a uint8 mask
+    [..., H, W]."""
+    maps = x.reshape((-1,) + x.shape[-2:]).float()
+    return F.max_pool2d(maps, 3, stride=1, padding=1).reshape(
+        x.shape).to(x.dtype)
 
 
 def device_largest_cc(label_full: torch.Tensor, label_small: torch.Tensor,
@@ -73,7 +82,9 @@ def device_largest_cc(label_full: torch.Tensor, label_small: torch.Tensor,
     package's half-pixel nearest), the keep-mask is dilated by ``dilate``
     coarse cells and nearest-upsampled to full size, and the full-size
     label is masked with it. Falls back to the operating grid when it is
-    too small for a ``scale`` grid."""
+    too small for a ``scale`` grid. Labels may carry leading axes ([B, H,
+    W], one map per stream): one launch set of the CC kernel serves them
+    all."""
     h, w = label_small.shape[-2:]
     if scale > 1 and min(h, w) // scale >= 16:
         cc_in = ops.resize(label_small, (h // scale, w // scale), "nearest",
@@ -83,7 +94,7 @@ def device_largest_cc(label_full: torch.Tensor, label_small: torch.Tensor,
     keep = ops.largest_connected_component(cc_in)
     for _ in range(max(0, int(dilate))):
         keep = _dilate(keep)
-    keep_full = ops.resize(keep, tuple(label_full.shape), "nearest",
+    keep_full = ops.resize(keep, tuple(label_full.shape[-2:]), "nearest",
                            spatial_axes=(-2, -1))
     return label_full * keep_full
 
@@ -304,17 +315,24 @@ class VideoSegEngine:
         if update_bank:
             k4, v4 = self.model.memorize(frame_small, pred)
             self.fb.update_device(state, k4, v4, self._idx, occ_bound)
+        return self._labels(pred, full_hw)
 
+    def _labels(self, pred: torch.Tensor, full_hw
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Object probabilities [..., obj, h, w] -> the full-size label
+        (cleaned up and bit-packed as the engine is set) and the
+        operating-size one, [..., H, W] and [..., h, w] uint8."""
+        cd = self.model.dtype
         if self.fb.obj_n == 2:
             # argmax of {bg, fg} is sign(fg - bg), and bicubic is linear
-            diff = (pred[1] - pred[0]).to(cd)
+            diff = (pred[..., 1, :, :] - pred[..., 0, :, :]).to(cd)
             up = ops.resize(diff, full_hw, "bicubic", spatial_axes=(-2, -1))
             label_full = (up > 0).to(torch.uint8)
             label_small = (diff > 0).to(torch.uint8)
         else:
             up = ops.resize(pred, full_hw, "bicubic", spatial_axes=(-2, -1))
-            label_full = torch.argmax(up, dim=0).to(torch.uint8)
-            label_small = torch.argmax(pred, dim=0).to(torch.uint8)
+            label_full = torch.argmax(up, dim=-3).to(torch.uint8)
+            label_small = torch.argmax(pred, dim=-3).to(torch.uint8)
         if self.postprocess == "device":
             label_full = device_largest_cc(label_full, label_small,
                                            scale=self.cc_scale)
@@ -343,7 +361,7 @@ class VideoSegEngine:
     def _step(self, state, frame, frame_idx, want_small):
         frame_u8 = self.upload(frame)
         update_bank = frame_idx % self.memorize_every == 0
-        m = self._features(frame_u8.shape[:2])
+        m = self._features(frame_u8.shape[-3:-1])
         self._idx.fill_(float(frame_idx))
         bound = state.occ_host.bound
         if self.cuda_graph:
@@ -438,8 +456,9 @@ def run_video_segmentation(test_path: str, test_name: str,
                            viz: bool = True, postprocess="auto",
                            image_model_path: Optional[str] = None,
                            first_mask_path: Optional[str] = None,
+                           checkpoint_every: int = 0,
                            memorize_every: int = 1, cc_scale: int = 16,
-                           device="cuda") -> dict:
+                           workers: int = 0, device="cuda") -> dict:
     """Segment every frame of a directory; masks go to
     ``<out_dir>/<test_name>/mask`` as indexed PNGs and, with ``viz``,
     overlays of them on the frames to ``<out_dir>/<test_name>/overlay``
@@ -449,8 +468,19 @@ def run_video_segmentation(test_path: str, test_name: str,
     ``<out_dir>/<test_name>/mask/<first frame>.png``) is made by the image
     model (:func:`.image_seg.run_image_segmentation`, weights from
     ``image_model_path`` or the bundled checkpoint), as the JAX runner
-    does. The loop enqueues frame t before it fetches frame t - 1's label,
-    whose copy to the host was started when it was made; no thread pool.
+    does.
+
+    ``checkpoint_every`` > 0: the bank is saved every K frames under
+    ``<out_dir>/<test_name>/bank_ckpt`` (a host sync each time), and a run
+    that finds a checkpoint there resumes after its frame, skipping the
+    frames before it, as the JAX runner does; an unusable checkpoint is
+    reported and the run starts afresh.
+
+    ``workers`` = 0 (the default) starts no thread pool: the loop enqueues
+    frame t before it fetches frame t - 1's label, whose copy to the host
+    was started when it was made. ``workers`` > 0 decodes up to three
+    frames ahead and writes masks and overlays in pools of that many
+    threads (the JAX runner's pools); the masks are the same.
     """
     from ..utils import load_image, load_mask, save_overlay, save_seg_mask
 
@@ -485,6 +515,17 @@ def run_video_segmentation(test_path: str, test_name: str,
                             memorize_every=memorize_every, cc_scale=cc_scale)
     first_frame = load_image(img_list[0])
     state = engine.bootstrap(first_frame, first_mask)
+    ckpt_dir = os.path.join(out_dir, test_name, "bank_ckpt")
+    start_idx = 0
+    if checkpoint_every > 0:
+        try:
+            resumed = load_bank_checkpoint(ckpt_dir, fb)
+        except Exception as e:   # as the JAX runner: start afresh
+            print(f"bank checkpoint unusable ({e}); starting fresh")
+            resumed = None
+        if resumed is not None:
+            state, start_idx = resumed
+            print(f"resumed bank checkpoint at frame {start_idx}")
     save_seg_mask(first_mask, os.path.join(mask_dir, first_name + ".png"))
     if viz:
         save_overlay(first_frame, first_mask,
@@ -498,19 +539,31 @@ def run_video_segmentation(test_path: str, test_name: str,
         if viz:
             save_overlay(frame, pred, os.path.join(overlay_dir, name + ".png"))
 
+    rest = img_list[1:]
+    decode_pool, writer_pool = make_pool(workers), make_pool(workers)
+    frames_ahead = Prefetcher(decode_pool, load_image, rest,
+                              3 if workers > 0 else 0)
     t0 = time.perf_counter()
-    pending = None
-    for idx, path in enumerate(img_list[1:]):
-        frame = load_image(path)
-        state, label = engine.step(state, frame, idx + 1)
+    pending, writes = None, []
+    try:
+        for idx in range(start_idx, len(rest)):
+            frame = frames_ahead.get(idx)
+            state, label = engine.step(state, frame, idx + 1)
+            if checkpoint_every > 0 and (idx + 1) % checkpoint_every == 0:
+                save_bank_checkpoint(ckpt_dir, state, idx + 1)
+            if pending is not None:
+                writes.append(writer_pool.submit(write, *pending))
+            pending = (os.path.splitext(os.path.basename(rest[idx]))[0],
+                       engine.fetch_label_async(label), frame)
         if pending is not None:
             write(*pending)
-        pending = (os.path.splitext(os.path.basename(path))[0],
-                   engine.fetch_label_async(label), frame)
-    if pending is not None:
-        write(*pending)
+        for w in writes:
+            w.result()
+    finally:
+        decode_pool.shutdown()
+        writer_pool.shutdown()
     seconds = time.perf_counter() - t0
-    frames = len(img_list) - 1
+    frames = len(rest) - start_idx
     report = fb.report(state)
     fps = frames / seconds if seconds > 0 else float("nan")
     print(report)
@@ -549,7 +602,12 @@ def _args():
                              "device when the host has fewer than 4 CPUs, "
                              "else host).")
     parser.add_argument("--checkpoint-every", type=int, default=0,
-                        help="Bank checkpoints are not ported yet; must be 0.")
+                        help="Checkpoint the bank every K frames under "
+                             "<out>/<name>/bank_ckpt and resume from it "
+                             "(0 = off).")
+    parser.add_argument("--workers", type=int, default=0,
+                        help="Threads to decode frames ahead and to write "
+                             "masks (0 = none, the frames in turn).")
     parser.add_argument("--memorize-every", type=int, default=1,
                         help="Memorize / update the bank every K frames "
                              "(1 = every frame, the reference).")
@@ -568,9 +626,6 @@ def _args():
 
 def main() -> None:
     args = _args()
-    if args.checkpoint_every != 0:
-        raise SystemExit("--checkpoint-every other than 0 is not ported "
-                         "yet")
     device = f"cuda:{args.gpu}" if args.device == "cuda" else args.device
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -583,8 +638,9 @@ def main() -> None:
         downsample=args.downsample, viz=args.viz,
         postprocess=args.postprocess, image_model_path=args.image_model_path,
         first_mask_path=args.first_mask,
+        checkpoint_every=args.checkpoint_every,
         memorize_every=args.memorize_every, cc_scale=args.cc_scale,
-        device=device)
+        workers=args.workers, device=device)
 
 
 if __name__ == "__main__":
