@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one line with its elapsed seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build: three ``nvcc`` runs, started together, build the float32 bank
-   read, combine and count kernels, the bf16 read and count kernels and
-   the largest-CC kernels into ``vfloodnet_tpu_torch/_build/``; each
+2. build: four ``nvcc`` runs, started together, build the float32 bank
+   read, combine and count kernels, the bf16 read and count kernels, the
+   largest-CC kernels and the NMS kernels into
+   ``vfloodnet_tpu_torch/_build/``; each
    kernel's registers and spills (``-Xptxas -v``) and its tensor-core
    instructions (``cuobjdump -sass``:
    the float32 read and count must hold ``HMMA`` in TF32, the bf16 ones
@@ -120,13 +121,29 @@ Phases, each printing one line with its elapsed seconds:
    and against the strided batched product it replaced, timed;
    (e) the float32 batch engine at B = 2 on phase 6's clip, card against
    CPU, > 0.999.
+13. stop-sign detection and depth (``--opt stopsign``; seeded weights:
+   the repo has no trained full-width detector): (b) the PointRend
+   X-101-32x8d detector at the full width of ``stopsign_rcnn_config`` on
+   a seeded 1080p frame (768 x 1344 padded), its forward under sync debug
+   "error", the NMS kernel launched exactly twice an image and the plain
+   loop never; the time an image and of each stage, device busy time,
+   idle share and peak memory; (a) the NMS kernel (``csrc/nms.cu``)
+   against its plain loop, exactly, at the RPN's shape (4,756 boxes, IoU
+   0.7, 1,000 kept, score > 0, with -inf, tied and duplicate entries),
+   the box head's (2,048 class-offset candidates, IoU 0.5, 100 kept, score
+   > 0.5), all dead, N < max_out, and the detector's own two calls; its
+   time, the plain loop's and the bound; (c) card against CPU at full
+   width on scene 0 with ``score_thresh=0.0`` (see
+   :func:`card_cpu_phase`); (d) the per-image stop-sign function on both
+   scenes, card and CPU rows equal, and a drawn octagon's known ratio.
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
 each kernel's launches in phase 11 as ``launches_waterlevel`` and in
 phase 12(b) and (c) as ``launches_batch`` and
 ``launches_batch_float32``, its phase-12(a) numbers as ``batch4``, the
-batch phases' under ``batch``) and, last,
+batch phases' under ``batch``, phase 13's under ``stopsign``; the NMS
+kernel's row counts its launches an image) and, last,
 ``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
 the read with its combine (the function that its plain version and the
 yardstick compute) and gives the read kernel alone as
@@ -140,6 +157,7 @@ no result when CUDA is absent.
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -172,6 +190,17 @@ from vfloodnet_tpu_torch.pipelines.video_seg import (VideoSegEngine,
                                                      host_largest_cc,
                                                      to_onehot)
 from vfloodnet_tpu_torch.pipelines.video_seg_batch import BatchVideoSegEngine
+from vfloodnet_tpu_torch.models.detection import (GeneralizedRCNN,
+                                                  build_detector,
+                                                  stopsign_rcnn_config)
+from vfloodnet_tpu_torch.models.detection.meta import STRIDES, seeded_init
+from vfloodnet_tpu_torch.ops import nms as nms_ops
+from vfloodnet_tpu_torch.ops import nms_cuda
+from vfloodnet_tpu_torch.ops.homography import perspective_transform
+from vfloodnet_tpu_torch.ops.roi_align import LevelTable
+from vfloodnet_tpu_torch.pipelines.object_detection import (
+    Instances, make_stopsign_template, stopsign_depth)
+from vfloodnet_tpu_torch.utils.draw import XY_SHIFT, _fill_convex
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -231,12 +260,13 @@ KERNELS = ("read_bf16_kernel", "count_bf16_kernel", "read_kernel",
            "combine_kernel", "count_kernel", "cc_init_kernel",
            "cc_merge_kernel", "cc_compress_kernel", "cc_argmax_kernel",
            "cc_keep_kernel")
+NMS_KERNELS = ("nms_rank_kernel", "nms_mask_kernel", "nms_walk_kernel")
 BANK_STATE = ("keys", "values", "valid", "birth", "usage", "occ", "peak_n",
               "replace_n")
 
 
 def _kernel_name(symbol):
-    return next((k for k in KERNELS if k in symbol), symbol)
+    return next((k for k in KERNELS + NMS_KERNELS if k in symbol), symbol)
 
 
 def _ptxas_report(log):
@@ -286,13 +316,13 @@ def _sass_mma(lib_path):
 def build_phase():
     t = time.perf_counter()
     paths = bank_read_cuda.build()
-    log("build", f"{paths} in {time.perf_counter() - t:.2f}s (nvcc, both "
-        f"libraries at once: {bank_read_cuda.build_seconds})")
+    log("build", f"{paths} in {time.perf_counter() - t:.2f}s (nvcc, every "
+        f"library at once: {bank_read_cuda.build_seconds})")
     ptxas, sass = {}, {}
     for lib, path in paths.items():
         ptxas.update(_ptxas_report(bank_read_cuda.build_log.get(lib, "")))
         sass.update(_sass_mma(path))
-    for name in KERNELS:
+    for name in KERNELS + NMS_KERNELS:
         log("build", f"{name}: ptxas {ptxas.get(name)}, SASS "
             f"{sass.get(name)}")
     for name in ("read_kernel", "count_kernel"):
@@ -309,7 +339,7 @@ def build_phase():
               ptxas[name].get("spill_load_bytes") == 0,
               f"{name} spills no registers")
     return {name: {**ptxas.get(name, {}), "sass_mma": sass.get(name)}
-            for name in KERNELS}
+            for name in KERNELS + NMS_KERNELS}
 
 
 def _plain(q, keys, values, valid, occ):
@@ -1953,6 +1983,439 @@ def batch_cpu_phase(model):
     return {"card_vs_cpu": agree}
 
 
+# ---------------------------------------------------------------------------
+# 13. stop-sign detection and depth
+# ---------------------------------------------------------------------------
+
+DET_HW = (768, 1344)     # a 1080p frame at 800 / 1333, padded to /32
+SCENE_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "records", "port_fixtures",
+                             "stopsign_scene{}_{}.npy")
+
+
+def _nms_cases():
+    """name -> (boxes [N, 4], scores [N], IoU threshold, max_out, score
+    threshold) on the card: the RPN's shape (negative, -inf and tied
+    scores, duplicate boxes), the box head's (class offsets, thousands of
+    0.0 scores and ties), an all-dead case and N < max_out."""
+    rng = np.random.RandomState(SEED + 13)
+
+    def boxes(n, w, h, size):
+        xy = rng.uniform(-size / 2, [w, h], (n, 2))
+        b = np.concatenate([xy, xy + rng.exponential(size, (n, 2)) + 1], 1)
+        b[:, 0::2] = b[:, 0::2].clip(0, w)
+        b[:, 1::2] = b[:, 1::2].clip(0, h)
+        return b
+
+    n = 4756
+    b = boxes(n, DET_HW[1], DET_HW[0], 120.0)
+    s = rng.randn(n)
+    s[::7] = np.round(s[::7], 1)
+    s[rng.rand(n) < 0.05] = -np.inf
+    dup = rng.choice(n, 300, replace=False)
+    b[dup[150:]], s[dup[150:]] = b[dup[:150]], s[dup[:150]]
+    cases = {"rpn": (b, s, 0.7, 1000, 0.0)}
+    n = 2048
+    b = boxes(n, DET_HW[1], DET_HW[0], 150.0)
+    cls = rng.randint(0, 80, n)
+    s = np.where(rng.rand(n) < 0.4, 0.0,
+                 np.round(rng.uniform(0.3, 1.0, n), 2))
+    cases["box"] = (b + cls[:, None] * (DET_HW[1] + 1.0), s, 0.5, 100, 0.5)
+    cases["all_dead"] = (b[:500], np.full(500, -np.inf), 0.7, 100, 0.0)
+    cases["n_lt_max_out"] = (b[:37], rng.randn(37), 0.5, 100, 0.0)
+    return {k: (torch.tensor(v[0], dtype=torch.float32, device=DEV),
+                torch.tensor(v[1], dtype=torch.float32, device=DEV)) + v[2:]
+            for k, v in cases.items()}
+
+
+def _nms_pairs(boxes, scores, iou_thr, max_out, score_thr):
+    """IoUs greedy NMS needs on these inputs: each pick against every box
+    still alive at its step (the bound's operations)."""
+    iou = nms_ops.box_iou(boxes, boxes)
+    alive = scores > score_thr
+    pairs = 0
+    for _ in range(max_out):
+        s = torch.where(alive, scores, float("-inf"))
+        best = int(torch.argmax(s))
+        if not math.isfinite(float(s[best])):
+            break
+        pairs += int(alive.sum()) - 1
+        alive &= ~(iou[best] > iou_thr)
+        alive[best] = False
+    return pairs
+
+
+def _nms_equal(name, args):
+    got = nms_cuda.nms(*args)
+    want = nms_ops.nms_plain(*args)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("keep_idx", "keep_scores", "valid")):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"nms {name}: the kernel's {what} equals the plain version's")
+    return int(want[2].sum())
+
+
+def nms_phase(captured=None):
+    """13(a): the NMS kernel against its plain version on the card, exactly
+    (keep_idx, keep_scores, valid), on :func:`_nms_cases` and on the two
+    calls the detector made in (b); times (median of 10, CUDA events) and
+    bounds at the RPN's and the box head's shapes."""
+    cases = _nms_cases()
+    for i, args in enumerate(captured or []):
+        cases[f"detector_call_{i}"] = args
+    out = {}
+    for name, args in cases.items():
+        kept = _nms_equal(name, args)
+        row = {"n": int(args[0].shape[0]), "max_out": args[3], "kept": kept}
+        if name in ("rpn", "box"):
+            pairs = _nms_pairs(*args)
+            n, max_out = row["n"], args[3]
+            bound = _bound(20.0 * pairs, n * 20 + max_out * 13, F32_PEAK)
+            row.update(
+                ms=time_ms(lambda: nms_cuda.nms(*args)),
+                plain_ms=time_ms(lambda: nms_ops.nms_plain(*args)),
+                bound_ms=bound[0], bound_by=bound[1], iou_pairs=pairs)
+        out[name] = row
+        log("nms", f"{name}: {row}")
+    return out
+
+
+def _detector(cfg, state, dev):
+    model = GeneralizedRCNN(cfg)
+    model.load_state_dict(state)
+    return build_detector(model.to(dev))
+
+
+def _device_span_ms(prof):
+    """(sum of the device events' times, the length of their union) in
+    ms: the union is the time the card was busy when kernels overlap."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total = sum(b - a for a, b in spans)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return total / 1e3, union / 1e3
+
+
+def _stage_ms(det, frame, water):
+    """One image in stages, CUDA events between the device stages (ms):
+    the upload and resize of the frame, backbone, FPN, RPN with its NMS,
+    box inference, the coarse mask head, PointRend, then the host's paste
+    and geometry."""
+    m = det.model
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    with torch.no_grad():
+        ev[0].record()
+        padded, scale = det.preprocess(frame)
+        ev[1].record()
+        c = m.backbone((padded - m.pixel_mean)[None].permute(0, 3, 1, 2))
+        ev[2].record()
+        pyr = m.fpn(c)
+        ev[3].record()
+        prop, _, pv = m.rpn(pyr, DET_HW)
+        ev[4].record()
+        feats = LevelTable([p[0].permute(1, 2, 0) for p in pyr[:4]],
+                           STRIDES)
+        det_out = m.infer_boxes(feats, prop, pv, DET_HW)
+        ev[5].record()
+        out = m.infer_tail(feats, *det_out)
+        ev[6].record()
+        out = m.refine(out)
+        ev[7].record()
+        ev[7].synchronize()
+        t = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        inst = det.postprocess(host, scale, frame.shape[:2])
+        stopsign_depth(frame, inst, water)
+        host_ms = 1e3 * (time.perf_counter() - t)
+    names = ("upload_and_resize", "backbone", "fpn", "rpn_with_nms",
+             "box_inference", "coarse_mask_head", "pointrend")
+    return {**{k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)},
+            "host_paste_and_geometry": host_ms}
+
+
+def detector_phase(state):
+    """13(b): the PointRend X-101-32x8d detector at full width
+    (``stopsign_rcnn_config``: FPN P2-P6, 1,000 proposals, 80 classes, 100
+    detections, the coarse head and 3 subdivisions of 784 points), seeded
+    weights, float32 with TF32 off, on a seeded synthetic 1080p frame
+    (750 x 1333, padded to 768 x 1344). The forward to its static outputs
+    runs under sync debug "error"; the NMS kernel launches exactly twice an
+    image and the plain loop never runs. Times: an image end to end
+    (median of 5 after 2 warm-ups), each stage, the forward's device busy
+    time and idle share (``torch.profiler``: the union of the kernels'
+    spans, which overlap here, against the profiled forward's own span),
+    peak memory. Returns its numbers and the detector's two NMS
+    inputs."""
+    cfg = stopsign_rcnn_config()
+    det = _detector(cfg, state, DEV)
+    frames, water = synthetic_clip(1, *FRAME_HW, SEED + 13)
+    frame = np.ascontiguousarray(frames[0][..., ::-1])        # BGR
+    padded, _ = det.preprocess(frame)
+    check(tuple(padded.shape) == DET_HW + (3,), f"1080p pads to {DET_HW}")
+    plain_calls = [0]
+    plain = nms_ops.nms_plain
+
+    def counting_plain(*a, **k):
+        plain_calls[0] += 1
+        return plain(*a, **k)
+
+    def run_image():
+        inst = det(frame)
+        return stopsign_depth(frame, inst, water)
+
+    nms_ops.nms_plain = counting_plain
+    captured = []
+    try:
+        for _ in range(2):
+            run_image()
+        torch.cuda.synchronize()
+        nms_cuda.reset_launches()
+        kernel = nms_cuda.nms
+
+        def capturing(*a):
+            captured.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
+            return kernel(*a)
+
+        nms_cuda.nms = capturing
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = det.forward(padded)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            nms_cuda.nms = kernel
+        launches = nms_cuda.launches["nms"]
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            run_image()
+            times.append(1e3 * (time.perf_counter() - t))
+    finally:
+        nms_ops.nms_plain = plain
+    check(launches == 2, f"the NMS kernel launched twice an image "
+          f"({launches})")
+    check(plain_calls[0] == 0, "the plain NMS loop never ran on the card")
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    check(host["boxes"].shape == (100, 4) and
+          host["mask_logits"].shape == (100, 56, 56) and
+          all(np.isfinite(v).all() for v in host.values()
+              if v.dtype.kind == "f"), "static outputs of the expected "
+          "shapes, finite")
+    stages = [_stage_ms(det, frame, water) for _ in range(5)]
+    stages = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
+    fwd_ms = time_ms(lambda: det.forward(padded), reps=5)
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with _profile() as prof:
+        ends[0].record()
+        det.forward(padded)
+        ends[1].record()
+        torch.cuda.synchronize()
+    prof_ms = ends[0].elapsed_time(ends[1])
+    _, per = _busy_ms(prof, NMS_KERNELS)
+    kernel_sum, busy = _device_span_ms(prof)
+    torch.cuda.reset_peak_memory_stats()
+    det.forward(padded)
+    torch.cuda.synchronize()
+    res = {"image_ms": float(np.median(times)), "image_ms_all": times,
+           "forward_ms": fwd_ms, "stages_ms": stages,
+           "profiled_forward_ms": prof_ms, "device_busy_ms": busy,
+           "device_event_sum_ms": kernel_sum,
+           "idle_share": 1.0 - busy / prof_ms,
+           "nms_kernels_ms": {k: v[0] for k, v in per.items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "nms_launches_an_image": launches,
+           "valid_detections": int(host["valid"].sum()),
+           "padded_hw": list(DET_HW)}
+    log("stopsign", f"full width, seeded: {res}")
+    return res, captured, launches
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def card_cpu_phase(state):
+    """13(c): the full-width detector on the card against itself on the
+    CPU, same seeded weights, on scene 0 (``records/port_fixtures``, 320 x
+    320 -> 800 x 800) with ``score_thresh=0.0``, so that all 100 detection
+    slots hold distinct boxes and the mask and PointRend heads see real
+    boxes: P2-P6 within rtol 1e-4 of each map's max; the proposals (as
+    many valid; >= 95 % of slots equal within 1e-3 of the image size and
+    >= 97 % found among the CPU's: near-tied logits may swap); then the
+    card's box half on the CPU's maps and proposals against the CPU's (>=
+    95 of 100 slots the same class and box), and the card's mask heads
+    and PointRend on the CPU's detections against the CPU's (coarse logits
+    within 1e-4 of their scale, refined masks' signs on >= 0.999 of
+    cells)."""
+    cfg = dataclasses.replace(stopsign_rcnn_config(), score_thresh=0.0)
+    frame = np.load(SCENE_FIXTURE.format(0, "frame"))
+    dets = {"card": _detector(cfg, state, DEV),
+            "cpu": _detector(cfg, state, torch.device("cpu"))}
+    padded, _ = dets["cpu"].preprocess(frame)
+    hw = tuple(padded.shape[:2])
+    res = {"padded_hw": list(hw)}
+    with torch.no_grad():
+        front = {}
+        for k, d in dets.items():
+            x = padded.to(d.device)
+            pyr = d.model.pyramid(x)
+            prop, _, pv = d.model.rpn(pyr, hw)
+            feats = LevelTable([p[0].permute(1, 2, 0) for p in pyr[:4]],
+                               STRIDES)
+            front[k] = (pyr, feats, prop, pv)
+        res["pyramid_rel_err"] = [
+            _rel(a.cpu(), b) for a, b in zip(front["card"][0],
+                                             front["cpu"][0])]
+        check(max(res["pyramid_rel_err"]) < 1e-4, "P2-P6 within 1e-4 of "
+              "each map's max")
+        pc, pg = front["cpu"][2].numpy(), front["card"][2].cpu().numpy()
+        vc, vg = front["cpu"][3].numpy(), front["card"][3].cpu().numpy()
+        tol = 1e-3 * max(hw)
+        close = np.abs(pc - pg).max(axis=1) <= tol
+        dist = np.abs(pg[vg][:, None] - pc[vc][None]).max(axis=-1)
+        res["proposals"] = {"valid_cpu": int(vc.sum()),
+                            "valid_card": int(vg.sum()),
+                            "same_slot_share": float((close & (vc == vg))
+                                                     .mean()),
+                            "matched_share": float((dist <= tol).any(axis=1)
+                                                   .mean()),
+                            "max_abs": float(np.abs(pc - pg).max())}
+        # the back half on the CPU's front
+        _, feats_c, prop_c, pv_c = front["cpu"]
+        feats_g = LevelTable([f.to(DEV) for f in feats_c.maps], STRIDES)
+        box_c = dets["cpu"].model.infer_boxes(feats_c, prop_c, pv_c, hw)
+        box_g = dets["card"].model.infer_boxes(feats_g, prop_c.to(DEV),
+                                               pv_c.to(DEV), hw)
+        bc = [t.numpy() for t in box_c]
+        bg = [t.cpu().numpy() for t in box_g]
+        same = (bc[2] == bg[2]) & (bc[3] == bg[3]) & \
+            (np.abs(bc[0] - bg[0]).max(axis=1) <= 1e-3 * max(hw))
+        res["detections"] = {
+            "valid": int(bc[3].sum()), "same_slot_share": float(same.mean()),
+            "max_abs_box": float(np.abs(bc[0] - bg[0]).max()),
+            "max_abs_score": float(np.abs(bc[1] - bg[1]).max())}
+        tail_c = dets["cpu"].model.refine(
+            dets["cpu"].model.infer_tail(feats_c, *box_c))
+        tail_g = dets["card"].model.infer_tail(
+            feats_g, *(t.to(DEV) for t in box_c))
+        coarse_g = tail_g["mask_logits"].cpu()
+        tail_g = dets["card"].model.refine(tail_g)
+        coarse_c = dets["cpu"].model.infer_tail(feats_c, *box_c)
+        res["coarse_rel_err"] = _rel(coarse_g, coarse_c["mask_logits"])
+        ref_g = tail_g["mask_logits"].cpu().numpy()
+        ref_c = tail_c["mask_logits"].numpy()
+        res["refined_rel_err"] = _rel(ref_g, ref_c)
+        res["refined_sign_agree"] = float(((ref_g > 0) == (ref_c > 0))
+                                          .mean())
+    log("stopsign", f"card vs CPU, full width, score_thresh 0: {res}")
+    check(res["proposals"]["valid_card"] == res["proposals"]["valid_cpu"],
+          "as many valid proposals on the card as on the CPU")
+    # near-tied objectness logits (float32 convolution sums in another
+    # order) may swap their slots, and then their NMS picks
+    check(res["proposals"]["same_slot_share"] >= 0.95 and
+          res["proposals"]["matched_share"] >= 0.97, "proposals: >= 95 % "
+          "of slots equal within 1e-3 of the image size, >= 97 % of the "
+          "card's found among the CPU's")
+    check(bc[3].sum() == 100, "100 valid detections at score_thresh 0")
+    check(res["detections"]["same_slot_share"] >= 0.95, "the box half on "
+          "the same input: >= 95 of 100 slots hold the same class and box")
+    check(res["coarse_rel_err"] < 1e-4, "coarse mask logits within 1e-4 "
+          "of scale")
+    check(res["refined_sign_agree"] >= 0.999, "refined masks agree on >= "
+          "0.999 of cells")
+    return res
+
+
+def _octagon_case():
+    """A stop sign drawn in numpy under a known homography (scaled 1.6,
+    moved to (700, 150), a mild perspective) over water below row 620 of
+    a 1080p frame: (image, Instances, water mask, the expected ratio)."""
+    plate, top, bottom = make_stopsign_template()
+    h = np.array([[1.6, 0.05, 700.0], [0.02, 1.6, 150.0], [0.0, 1e-5, 1.0]])
+    poly = perspective_transform(plate, h)
+    mask = np.zeros(FRAME_HW, np.uint8)
+    _fill_convex(mask, [(int(round(x * (1 << XY_SHIFT))),
+                         int(round(y * (1 << XY_SHIFT)))) for x, y in poly],
+                 np.uint8(1))
+    water = np.zeros(FRAME_HW, np.uint8)
+    water[620:] = 1
+    p_top, p_bot = perspective_transform(np.stack([top, bottom]), h)
+    expected = (p_bot[1] - 620) / (p_bot[1] - p_top[1])
+    inst = Instances(boxes=np.zeros((1, 4), np.float32),
+                     scores=np.ones(1, np.float32),
+                     classes=np.array([11], np.int32), masks=mask[None])
+    img = np.full(FRAME_HW + (3,), 128, np.uint8)
+    return img, inst, water, float(expected)
+
+
+def chain_phase(state):
+    """13(d): the per-image stop-sign function on the card's machine (no
+    cv2, no PIL): both scene fixtures through the full-width detector on
+    the card and on the CPU, equal rows; then an octagon drawn under a
+    known homography through fit_octagon, the homography and the pole
+    march: its ratio within 0.02 of the geometric one."""
+    cfg = stopsign_rcnn_config()
+    dets = {"card": _detector(cfg, state, DEV),
+            "cpu": _detector(cfg, state, torch.device("cpu"))}
+    rows = {}
+    for i in (0, 1):
+        frame = np.load(SCENE_FIXTURE.format(i, "frame"))
+        water = np.load(SCENE_FIXTURE.format(i, "mask"))
+        for k, d in dets.items():
+            ratio, depth, _ = stopsign_depth(frame, d(frame), water)
+            rows.setdefault(f"scene{i}", {})[k] = [round(ratio, 4),
+                                                   round(depth, 4)]
+        check(rows[f"scene{i}"]["card"] == rows[f"scene{i}"]["cpu"],
+              f"scene {i}: card and CPU rows are equal")
+    img, inst, water, expected = _octagon_case()
+    ratio, depth, canvases = stopsign_depth(img, inst, water)
+    res = {"rows": rows, "octagon": {"ratio": ratio, "depth_cm": depth,
+                                     "expected_ratio": expected}}
+    log("stopsign", f"chain without cv2: {res}")
+    check(canvases is not None and abs(ratio - expected) < 0.02,
+          "the drawn octagon's ratio is the geometric one within 0.02")
+    return res
+
+
+def stopsign_phase():
+    """Phase 13: (b) the detector at full width (which also gives the NMS
+    kernel's launches and the detector's two NMS inputs), (a) the kernel
+    against its plain version, (c) card against CPU, (d) the chain."""
+    model = seeded_init(GeneralizedRCNN(stopsign_rcnn_config()), SEED)
+    state = model.state_dict()
+    res, captured, launches = detector_phase(state)
+    res["nms"] = nms_phase(captured)
+    res["card_vs_cpu"] = card_cpu_phase(state)
+    res["chain"] = chain_phase(state)
+    return res, launches
+
+
+def nms_row(stop, launches, build):
+    """The NMS kernel's row: times at the RPN's shape, the box head's
+    beside them."""
+    rpn, box = stop["nms"]["rpn"], stop["nms"]["box"]
+    return {
+        "name": "nms", "route": "cuda",
+        "source": "vfloodnet_tpu_torch/csrc/nms.cu",
+        "replaces": "vfloodnet_tpu/ops/nms.py:30",
+        "replaces_kind": "an XLA fori_loop, not a Pallas kernel",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": rpn["ms"], "plain_ms": rpn["plain_ms"],
+        "bound_ms": rpn["bound_ms"], "bound_by": rpn["bound_by"],
+        "library_ms": None, "shape": {"n": rpn["n"],
+                                      "max_out": rpn["max_out"]},
+        "box_head": {k: box[k] for k in ("n", "max_out", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+        "build": {k: build[k] for k in NMS_KERNELS}}
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -2029,6 +2492,8 @@ def main():
     batch["float32"], launches_b32 = batch_main_phase(
         model, f32_kernels, ("read_kernel", "combine_kernel",
                              "count_kernel") + cc_names)
+    torch.cuda.empty_cache()
+    stopsign, launches_nms = stopsign_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -2038,9 +2503,11 @@ def main():
         row["launches_batch_float32"] = launches_b32[row["name"]]
         if row["name"] in batch_k:
             row["batch4"] = batch_k[row["name"]]
+    kernels.append(nms_row(stopsign, launches_nms, build))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
-                      "waterlevel": waterlevel, "batch": batch}),
+                      "waterlevel": waterlevel, "batch": batch,
+                      "stopsign": stopsign}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

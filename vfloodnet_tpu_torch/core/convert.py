@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's AFB-URR (and, at the end, LinkNet)
+"""Weight bridge: the JAX package's AFB-URR, LinkNet and Generalized R-CNN
 variables -> the port's ``state_dict``.
 
 Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
@@ -112,6 +112,57 @@ def convert_linknet_variables(variables: Dict[str, Any]
         used.add(key)
         if leaf == "kernel":
             out[port + ".weight"] = _oihw(arr)
+        elif leaf == "bias":
+            out[port + ".bias"] = arr
+        elif leaf == "scale":          # FrozenBN
+            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
+            out[port + ".weight"] = arr * np.reciprocal(
+                np.sqrt(var + np.float32(BN_EPS)))
+            out[port + ".mean"] = np.asarray(
+                flat[f"batch_stats/{path}/mean"], np.float32)
+            used.update((f"batch_stats/{path}/var",
+                         f"batch_stats/{path}/mean"))
+        else:
+            raise KeyError(f"unexpected Flax array {key}")
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+
+
+def convert_rcnn_variables(variables: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``GeneralizedRCNN`` variables (a flat npz, or the
+    Flax tree as numpy) -> a ``state_dict`` for
+    :class:`vfloodnet_tpu_torch.models.detection.GeneralizedRCNN`.
+
+    Paths map one to one (``/`` -> ``.``). Conv kernels go from HWIO to
+    OIHW, dense kernels [in, out] to [out, in] (the heads flatten ROI
+    features in the JAX package's (y, x, channel) order, so no weight is
+    permuted). A transposed convolution's kernel [kh, kw, in, out] becomes
+    ``ConvTranspose2d``'s [in, out, kh, kw], flipped spatially: the Flax
+    layer (kernel not transposed) writes input (i, j) times tap
+    (1 - a, 1 - b) to output (2i + a, 2j + b). FrozenBN folds ``scale`` and
+    the running ``var`` into ``weight = scale / sqrt(var + 1e-5)``. Every
+    Flax array is used exactly once; a key left over raises."""
+    flat = flatten(variables)
+    out: Dict[str, np.ndarray] = {}
+    used = set()
+    for key in sorted(flat):
+        if not key.startswith("params/"):
+            continue
+        path, leaf = key[len("params/"):].rsplit("/", 1)
+        port = path.replace("/", ".")
+        arr = np.asarray(flat[key], np.float32)
+        used.add(key)
+        if leaf == "kernel" and arr.ndim == 4 and path.endswith("deconv"):
+            out[port + ".weight"] = np.ascontiguousarray(
+                np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+        elif leaf == "kernel" and arr.ndim == 4:
+            out[port + ".weight"] = _oihw(arr)
+        elif leaf == "kernel" and arr.ndim == 2:
+            out[port + ".weight"] = np.ascontiguousarray(arr.T)
         elif leaf == "bias":
             out[port + ".bias"] = arr
         elif leaf == "scale":          # FrozenBN

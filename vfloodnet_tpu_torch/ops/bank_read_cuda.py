@@ -2,7 +2,8 @@
 float32 (``csrc/bank_read.cu``: read, combine, count) and bf16
 (``csrc/bank_read_bf16.cu``: read, count; its partials go through the
 float32 combine). :func:`build` also builds the largest-CC library
-(``csrc/cc.cu``) that :mod:`.cc_cuda` loads.
+(``csrc/cc.cu``) that :mod:`.cc_cuda` loads and the greedy-NMS library
+(``csrc/nms.cu``) that :mod:`.nms_cuda` loads.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``, at the first launch in a process (never
@@ -41,9 +42,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 # library name -> its source under CSRC (``cc`` is the largest-CC kernel
-# of :mod:`.cc_cuda`, built here with the others)
+# of :mod:`.cc_cuda` and ``nms`` the NMS kernel of :mod:`.nms_cuda`, built
+# here with the others)
 SOURCES = {"bank_read": "bank_read.cu", "bank_read_bf16": "bank_read_bf16.cu",
-           "cc": "cc.cu"}
+           "cc": "cc.cu", "nms": "nms.cu"}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

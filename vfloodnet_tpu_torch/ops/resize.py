@@ -25,6 +25,24 @@ they are not used.
 Index and tap tensors are built once per (sizes, method, device) and kept
 on the device, so a resize inside the video step makes no host-to-device
 copy of its own (and can be captured in a CUDA graph).
+
+OpenCV's ``INTER_LINEAR`` (``cv2.resize``'s default), in numpy on the
+host, for the detector's input and its mask pasting, which the JAX
+package resizes with cv2 (the card's machine has none):
+
+- :func:`cv2_linear_u8`: the uint8 form, in OpenCV's fixed point, as
+  torch integer ops on the image's device (the detector resizes its
+  uploaded frame on the card). Sample
+  positions ``(i + 0.5) * in / out - 0.5`` in float; 11-bit weights
+  ``rint(w * 2048)``; the horizontal pass clamps the sample to the edge
+  (weights (1, 0) outside), the vertical one keeps its weights and clamps
+  the two rows it reads. The vertical pass is OpenCV's SIMD one: each
+  row's sums shifted right by 4, multiplied by the 11-bit weight keeping
+  the high 16 bits, added, then ``(x + 2) >> 2``; OpenCV 5.0.0's own
+  results on every size tried.
+- :func:`cv2_linear_f32`: the float32 form with the same positions and
+  float weights, edges clamped alike. OpenCV's float kernels round in
+  another order: about 1e-6 of the value apart.
 """
 
 from __future__ import annotations
@@ -187,3 +205,64 @@ def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
                       align_corners=False)
     y = y.reshape(lead + tuple(out_hw))
     return y.movedim((-2, -1), (h_ax, w_ax))
+
+
+def _cv2_taps(n_in: int, n_out: int, clamp: bool):
+    """OpenCV's linear taps along one axis: (first index, second index,
+    float32 weights of each); ``clamp`` (the horizontal pass) puts a sample
+    outside the input on the edge pixel with weights (1, 0), otherwise
+    only the indices are clamped."""
+    scale = 1.0 / (np.float64(n_out) / np.float64(n_in))
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = (f - i0.astype(np.float32)).astype(np.float32)
+    if clamp:
+        edge = (i0 < 0) | (i0 >= n_in - 1)
+        f[edge] = 0
+        i0 = np.clip(i0, 0, n_in - 1)
+    i1 = np.clip(i0 + 1, 0, n_in - 1)
+    i0 = np.clip(i0, 0, n_in - 1)
+    return i0, i1, (np.float32(1) - f).astype(np.float32), f
+
+
+@functools.lru_cache(maxsize=16)
+def _cv2_u8_taps(n_in: int, n_out: int, clamp: bool, device: torch.device):
+    """:func:`_cv2_taps` as int64 indices and 11-bit int32 weights on
+    ``device``, made once per (sizes, axis kind, device)."""
+    i0, i1, w0, w1 = _cv2_taps(n_in, n_out, clamp)
+    return tuple(torch.from_numpy(v).to(device) for v in (
+        i0, i1, np.rint(w0 * 2048).astype(np.int32),
+        np.rint(w1 * 2048).astype(np.int32)))
+
+
+def cv2_linear_u8(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``cv2.resize(img, (w, h))`` of a uint8 [H, W] or [H, W, C] tensor,
+    on its device (integer arithmetic: the same bytes on the card and the
+    CPU)."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return img.clone()
+    chan = (1,) * (img.ndim - 2)
+    x0, x1, a0, a1 = _cv2_u8_taps(w, ow, True, img.device)
+    y0, y1, b0, b1 = _cv2_u8_taps(h, oh, False, img.device)
+    src = img.to(torch.int32)
+    rows = (src.index_select(1, x0) * a0.reshape((1, ow) + chan)
+            + src.index_select(1, x1) * a1.reshape((1, ow) + chan))
+    acc = ((((rows.index_select(0, y0) >> 4) * b0.reshape((oh, 1) + chan))
+            >> 16)
+           + (((rows.index_select(0, y1) >> 4) * b1.reshape((oh, 1) + chan))
+              >> 16))
+    return ((acc + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+def cv2_linear_f32(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` of a float32 [H, W] map."""
+    h, w = img.shape
+    oh, ow = out_hw
+    img = img.astype(np.float32)
+    x0, x1, a0, a1 = _cv2_taps(w, ow, clamp=True)
+    y0, y1, b0, b1 = _cv2_taps(h, oh, clamp=False)
+    rows = img[:, x0] * a0 + img[:, x1] * a1
+    return (rows[y0] * b0[:, None] + rows[y1] * b1[:, None]).astype(
+        np.float32)

@@ -1,7 +1,7 @@
 """Water-level estimation CLI (counterpart of ``est_waterlevel.py``):
 
     python -m vfloodnet_tpu_torch.pipelines.waterlevel --test-path FRAMES \\
-        --test-name NAME --opt ref [--streaming] [--device cpu]
+        --test-name NAME --opt {ref,stopsign} [--streaming] [--device cpu]
 
 ``--opt ref`` reads the segmentation stage's masks
 (``<seg-dir>/<name>/mask``) and tracks a reference object
@@ -9,8 +9,12 @@
 segments the frames itself and scans each frame's mask on the device
 (:func:`.streaming_waterlevel.run_streaming_waterlevel`), with the video
 model of ``--model-path`` (a flat ``.npz`` of the JAX package; default:
-the bundled checkpoint). Results go to ``<out-dir>/<name>_ref``. The
-detection-based options (stopsign, people) are not ported yet.
+the bundled checkpoint). ``--opt stopsign`` reads the same masks, detects
+stop signs (:func:`.object_detection.est_by_obj_detection`, the detector of
+``--det-model-path``: a flat ``.npz`` of the JAX package with its
+``rcnn_config.json`` sidecar; default: the bundled tiny checkpoint) and
+writes ``waterdepth.txt``. Results go to ``<out-dir>/<name>_<opt>``.
+``--opt people`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,8 +50,9 @@ def _args():
                    help="Video model for --streaming (flat .npz; default: "
                         "the bundled checkpoint)")
     p.add_argument("--det-model-path", type=str, default=None,
-                   help="Detector checkpoint (stopsign, people: not ported "
-                        "yet)")
+                   help="Detector checkpoint for --opt stopsign (flat .npz; "
+                        "an rcnn_config.json beside it selects the "
+                        "variant; default: the bundled checkpoint)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' or 'cpu'.")
     return p.parse_args()
@@ -55,15 +60,27 @@ def _args():
 
 def main() -> None:
     args = _args()
-    if args.opt in ("stopsign", "people"):
-        raise SystemExit(f"--opt {args.opt} (detection-based depth) is not "
-                         "ported to vfloodnet_tpu_torch yet; use "
-                         "est_waterlevel.py")
+    if args.opt == "people":
+        raise SystemExit("--opt people (detection-based depth) is not "
+                         "ported to vfloodnet_tpu_torch yet (ROADMAP A3); "
+                         "use est_waterlevel.py")
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     out_dir = os.path.join(args.out_dir, f"{args.test_name}_{args.opt}")
     os.makedirs(out_dir, exist_ok=True)
+    img_list = sorted(glob(os.path.join(args.test_path, "*.jpg"))
+                      + glob(os.path.join(args.test_path, "*.png")))
+    mask_dir = os.path.join(args.seg_dir, args.test_name, "mask")
+    masks = [os.path.join(mask_dir, os.path.splitext(
+        os.path.basename(p))[0] + ".png") for p in img_list]
+    if args.opt == "stopsign":
+        from .object_detection import est_by_obj_detection
+        out = est_by_obj_detection(img_list, masks, out_dir, args.opt,
+                                   det_model_path=args.det_model_path,
+                                   device=args.device)
+        print(gct(), f"Depth estimates written to {out}")
+        return
     if args.streaming:
         from .loaders import load_afb_urr
         from .streaming_waterlevel import run_streaming_waterlevel
@@ -73,11 +90,6 @@ def main() -> None:
                                        device=args.device)
     else:
         from .reference_tracking import est_by_reference
-        img_list = sorted(glob(os.path.join(args.test_path, "*.jpg"))
-                          + glob(os.path.join(args.test_path, "*.png")))
-        mask_dir = os.path.join(args.seg_dir, args.test_name, "mask")
-        masks = [os.path.join(mask_dir, os.path.splitext(
-            os.path.basename(p))[0] + ".png") for p in img_list]
         out = est_by_reference(img_list, masks, out_dir, args.record_dir,
                                args.test_name, device=args.device)
     print(gct(), f"Water levels written to {out}")
