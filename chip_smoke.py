@@ -136,14 +136,33 @@ Phases, each printing one line with its elapsed seconds:
    width on scene 0 with ``score_thresh=0.0`` (see
    :func:`card_cpu_phase`); (d) the per-image stop-sign function on both
    scenes, card and CPU rows equal, and a drawn octagon's known ratio.
+14. people detection and depth (``--opt people``; seeded weights): (b)
+   the Keypoint R-CNN R-101 at the full width of ``keypoint_rcnn_config``
+   on phase 13's frame, its forward under sync debug "error", the NMS
+   kernel launched exactly twice an image and the plain loop never; the
+   time an image and of each stage (the keypoint head: its ROIAlign, 8
+   convolutions of 512 on all 100 slots, the deconvolution and the
+   upsample; then the heatmaps' argmax on the host), busy time, idle share
+   and peak memory; (a) the NMS kernel against its plain loop, exactly,
+   at the one-class box head's shape (1,000 candidates, IoU 0.5, 100 kept,
+   score > 0.7, ties and duplicates) and on the detector's own two calls;
+   (c) card against CPU at full width on people scene 0 with
+   ``score_thresh=0.0`` (see :func:`people_card_cpu_phase`); (d) both
+   body-mesh regressors at full width (the bundled ``BodyMeshRegressor``
+   configuration, ``METRONetwork`` with HRNet-W64), a batch of 4 crops,
+   card against CPU within 1e-4, ms a crop at batch 1 and 4; (e) the
+   per-image people function on both people fixtures with the trained
+   tiny detector's boxes and each seeded regressor, card and CPU rows
+   equal, no cv2 or PIL imported.
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
 each kernel's launches in phase 11 as ``launches_waterlevel`` and in
 phase 12(b) and (c) as ``launches_batch`` and
 ``launches_batch_float32``, its phase-12(a) numbers as ``batch4``, the
-batch phases' under ``batch``, phase 13's under ``stopsign``; the NMS
-kernel's row counts its launches an image) and, last,
+batch phases' under ``batch``, phase 13's under ``stopsign``, phase 14's
+under ``people``; the NMS kernel's row counts its launches an image, the
+people detector's under ``people``) and, last,
 ``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
 the read with its combine (the function that its plain version and the
 yardstick compute) and gives the read kernel alone as
@@ -192,14 +211,19 @@ from vfloodnet_tpu_torch.pipelines.video_seg import (VideoSegEngine,
 from vfloodnet_tpu_torch.pipelines.video_seg_batch import BatchVideoSegEngine
 from vfloodnet_tpu_torch.models.detection import (GeneralizedRCNN,
                                                   build_detector,
+                                                  keypoint_rcnn_config,
                                                   stopsign_rcnn_config)
 from vfloodnet_tpu_torch.models.detection.meta import STRIDES, seeded_init
 from vfloodnet_tpu_torch.ops import nms as nms_ops
 from vfloodnet_tpu_torch.ops import nms_cuda
 from vfloodnet_tpu_torch.ops.homography import perspective_transform
 from vfloodnet_tpu_torch.ops.roi_align import LevelTable
+from vfloodnet_tpu_torch.models.metro import (BodyMeshRegressor,
+                                              METRONetwork, MeshRegressor)
+from vfloodnet_tpu_torch.models.metro import seeded_init as mesh_seeded_init
 from vfloodnet_tpu_torch.pipelines.object_detection import (
-    Instances, make_stopsign_template, stopsign_depth)
+    Instances, load_template_3d, make_stopsign_template, people_depth,
+    stopsign_depth)
 from vfloodnet_tpu_torch.utils.draw import XY_SHIFT, _fill_convex
 
 T0 = time.perf_counter()
@@ -2055,19 +2079,20 @@ def _nms_equal(name, args):
     return int(want[2].sum())
 
 
-def nms_phase(captured=None):
+def nms_phase(captured=None, cases=None, timed=("rpn", "box")):
     """13(a): the NMS kernel against its plain version on the card, exactly
-    (keep_idx, keep_scores, valid), on :func:`_nms_cases` and on the two
-    calls the detector made in (b); times (median of 10, CUDA events) and
-    bounds at the RPN's and the box head's shapes."""
-    cases = _nms_cases()
+    (keep_idx, keep_scores, valid), on ``cases`` (:func:`_nms_cases`) and on
+    the two calls the detector made in (b); times (median of 10, CUDA
+    events) and bounds at the ``timed`` cases' shapes (the RPN's and the
+    box head's)."""
+    cases = dict(_nms_cases() if cases is None else cases)
     for i, args in enumerate(captured or []):
         cases[f"detector_call_{i}"] = args
     out = {}
     for name, args in cases.items():
         kept = _nms_equal(name, args)
         row = {"n": int(args[0].shape[0]), "max_out": args[3], "kept": kept}
-        if name in ("rpn", "box"):
+        if name in timed:
             pairs = _nms_pairs(*args)
             n, max_out = row["n"], args[3]
             bound = _bound(20.0 * pairs, n * 20 + max_out * 13, F32_PEAK)
@@ -2101,11 +2126,16 @@ def _device_span_ms(prof):
     return total / 1e3, union / 1e3
 
 
-def _stage_ms(det, frame, water):
+STOPSIGN_STAGES = ("coarse_mask_head", "pointrend", "host_paste_and_geometry")
+PEOPLE_STAGES = ("keypoint_head", None, "host_heatmaps_to_keypoints")
+
+
+def _stage_ms(det, frame, host_fn, names=STOPSIGN_STAGES):
     """One image in stages, CUDA events between the device stages (ms):
     the upload and resize of the frame, backbone, FPN, RPN with its NMS,
-    box inference, the coarse mask head, PointRend, then the host's paste
-    and geometry."""
+    box inference, the tail's heads (the coarse mask head or the keypoint
+    head with their ROIAlign), PointRend (a name of None: no stage), then on
+    the host the download, the postprocess and ``host_fn(inst)``."""
     m = det.model
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
     with torch.no_grad():
@@ -2129,16 +2159,17 @@ def _stage_ms(det, frame, water):
         ev[7].synchronize()
         t = time.perf_counter()
         host = {k: v.cpu().numpy() for k, v in out.items()}
-        inst = det.postprocess(host, scale, frame.shape[:2])
-        stopsign_depth(frame, inst, water)
+        host_fn(det.postprocess(host, scale, frame.shape[:2]))
         host_ms = 1e3 * (time.perf_counter() - t)
-    names = ("upload_and_resize", "backbone", "fpn", "rpn_with_nms",
-             "box_inference", "coarse_mask_head", "pointrend")
-    return {**{k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)},
-            "host_paste_and_geometry": host_ms}
+    dev_names = ("upload_and_resize", "backbone", "fpn", "rpn_with_nms",
+                 "box_inference") + names[:2]
+    return {**{k: ev[i].elapsed_time(ev[i + 1])
+               for i, k in enumerate(dev_names) if k},
+            names[2]: host_ms}
 
 
-def detector_phase(state):
+def detector_phase(state, cfg=None, host_fn=None, stages=STOPSIGN_STAGES,
+                   heads=("mask_logits", (100, 56, 56)), label="stopsign"):
     """13(b): the PointRend X-101-32x8d detector at full width
     (``stopsign_rcnn_config``: FPN P2-P6, 1,000 proposals, 80 classes, 100
     detections, the coarse head and 3 subdivisions of 784 points), seeded
@@ -2150,11 +2181,18 @@ def detector_phase(state):
     time and idle share (``torch.profiler``: the union of the kernels'
     spans, which overlap here, against the profiled forward's own span),
     peak memory. Returns its numbers and the detector's two NMS
-    inputs."""
-    cfg = stopsign_rcnn_config()
+    inputs. Phase 14(b) runs it with the people detector's ``cfg``, the
+    people chain as ``host_fn(frame, water, instances)`` (default: the
+    stop-sign one) and the keypoint head's ``stages`` and ``heads`` (the
+    static head output that is checked)."""
+    cfg = cfg or stopsign_rcnn_config()
     det = _detector(cfg, state, DEV)
     frames, water = synthetic_clip(1, *FRAME_HW, SEED + 13)
     frame = np.ascontiguousarray(frames[0][..., ::-1])        # BGR
+    host_fn = host_fn or (lambda f, w, inst: stopsign_depth(f, inst, w))
+
+    def chain(inst):
+        return host_fn(frame, water, inst)
     padded, _ = det.preprocess(frame)
     check(tuple(padded.shape) == DET_HW + (3,), f"1080p pads to {DET_HW}")
     plain_calls = [0]
@@ -2165,8 +2203,7 @@ def detector_phase(state):
         return plain(*a, **k)
 
     def run_image():
-        inst = det(frame)
-        return stopsign_depth(frame, inst, water)
+        return chain(det(frame))
 
     nms_ops.nms_plain = counting_plain
     captured = []
@@ -2203,11 +2240,11 @@ def detector_phase(state):
     check(plain_calls[0] == 0, "the plain NMS loop never ran on the card")
     host = {k: v.cpu().numpy() for k, v in out.items()}
     check(host["boxes"].shape == (100, 4) and
-          host["mask_logits"].shape == (100, 56, 56) and
+          host[heads[0]].shape == heads[1] and
           all(np.isfinite(v).all() for v in host.values()
               if v.dtype.kind == "f"), "static outputs of the expected "
           "shapes, finite")
-    stages = [_stage_ms(det, frame, water) for _ in range(5)]
+    stages = [_stage_ms(det, frame, chain, stages) for _ in range(5)]
     stages = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
     fwd_ms = time_ms(lambda: det.forward(padded), reps=5)
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2232,7 +2269,7 @@ def detector_phase(state):
            "nms_launches_an_image": launches,
            "valid_detections": int(host["valid"].sum()),
            "padded_hw": list(DET_HW)}
-    log("stopsign", f"full width, seeded: {res}")
+    log(label, f"full width, seeded: {res}")
     return res, captured, launches
 
 
@@ -2397,10 +2434,12 @@ def stopsign_phase():
     return res, launches
 
 
-def nms_row(stop, launches, build):
+def nms_row(stop, launches, build, people, launches_people):
     """The NMS kernel's row: times at the RPN's shape, the box head's
-    beside them."""
+    beside them, and the people detector's (phase 14): its launches an
+    image, its two calls' shapes and the one-class box head's times."""
     rpn, box = stop["nms"]["rpn"], stop["nms"]["box"]
+    one = people["nms"]["box_one_class"]
     return {
         "name": "nms", "route": "cuda",
         "source": "vfloodnet_tpu_torch/csrc/nms.cu",
@@ -2413,7 +2452,202 @@ def nms_row(stop, launches, build):
                                       "max_out": rpn["max_out"]},
         "box_head": {k: box[k] for k in ("n", "max_out", "ms", "plain_ms",
                                          "bound_ms", "bound_by")},
+        "people": {
+            "launches_an_image": launches_people,
+            "calls": [{k: v[k] for k in ("n", "max_out", "kept")}
+                      for name, v in people["nms"].items()
+                      if name.startswith("detector_call")],
+            "box_one_class": {k: one[k] for k in (
+                "n", "max_out", "ms", "plain_ms", "bound_ms", "bound_by")}},
         "build": {k: build[k] for k in NMS_KERNELS}}
+
+
+# ---------------------------------------------------------------------------
+# 14. people detection and depth
+# ---------------------------------------------------------------------------
+
+PEOPLE_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "records", "port_fixtures",
+                              "people_scene{}_{}.npy")
+
+
+def _nms_one_class_case():
+    """The one-class box head's NMS input: min(2048, 1,000 x 1) = 1,000
+    candidates (15 chunks of 64 and a ragged one), IoU 0.5, 100 kept,
+    score > 0.7; 40 % zero scores, two-decimal ties, 100 duplicates."""
+    rng = np.random.RandomState(SEED + 14)
+    n = 1000
+    xy = rng.uniform(-75, [DET_HW[1], DET_HW[0]], (n, 2))
+    b = np.concatenate([xy, xy + rng.exponential(150.0, (n, 2)) + 1], 1)
+    b[:, 0::2] = b[:, 0::2].clip(0, DET_HW[1])
+    b[:, 1::2] = b[:, 1::2].clip(0, DET_HW[0])
+    s = np.where(rng.rand(n) < 0.4, 0.0,
+                 np.round(rng.uniform(0.3, 1.0, n), 2))
+    b[900:], s[900:] = b[:100], s[:100]
+    return {"box_one_class": (
+        torch.tensor(b, dtype=torch.float32, device=DEV),
+        torch.tensor(s, dtype=torch.float32, device=DEV), 0.5, 100, 0.7)}
+
+
+def people_card_cpu_phase(state):
+    """14(c): the full-width Keypoint R-CNN on the card against itself on
+    the CPU, same seeded weights, on people scene 0 (320 x 320 -> 800 x
+    800) with ``score_thresh=0.0``, so that all 100 detection slots hold
+    distinct boxes: P2-P6 within 1e-4 of each map's max; the card's box
+    half on the CPU's maps and proposals against the CPU's (>= 95 of 100
+    slots the same box); the card's keypoint head on the CPU's detections
+    against the CPU's: heatmaps within 1e-4 of their scale, and each
+    keypoint's cell (the heatmap's argmax) equal wherever its top two
+    values differ by more than 1e-4 of that scale."""
+    cfg = dataclasses.replace(keypoint_rcnn_config(), score_thresh=0.0)
+    frame = np.load(PEOPLE_FIXTURE.format(0, "frame"))
+    dets = {"card": _detector(cfg, state, DEV),
+            "cpu": _detector(cfg, state, torch.device("cpu"))}
+    padded, _ = dets["cpu"].preprocess(frame)
+    hw = tuple(padded.shape[:2])
+    res = {"padded_hw": list(hw)}
+    with torch.no_grad():
+        pyr_g = dets["card"].model.pyramid(padded.to(DEV))
+        feats_c, prop_c, pv_c = dets["cpu"].model.infer_front(padded)
+        pyr_c = dets["cpu"].model.pyramid(padded)
+        res["pyramid_rel_err"] = [_rel(a.cpu(), b)
+                                  for a, b in zip(pyr_g, pyr_c)]
+        feats_g = LevelTable([f.to(DEV) for f in feats_c.maps], STRIDES)
+        box_c = dets["cpu"].model.infer_boxes(feats_c, prop_c, pv_c, hw)
+        box_g = dets["card"].model.infer_boxes(feats_g, prop_c.to(DEV),
+                                               pv_c.to(DEV), hw)
+        bc = [t.numpy() for t in box_c]
+        bg = [t.cpu().numpy() for t in box_g]
+        same = (bc[3] == bg[3]) & \
+            (np.abs(bc[0] - bg[0]).max(axis=1) <= 1e-3 * max(hw))
+        heat_c = dets["cpu"].model.infer_tail(
+            feats_c, *box_c)["keypoint_heatmaps"].numpy()
+        heat_g = dets["card"].model.infer_tail(
+            feats_g, *(t.to(DEV) for t in box_c))["keypoint_heatmaps"]
+        heat_g = heat_g.cpu().numpy()
+    d, side, _, k = heat_c.shape
+    flat_c = heat_c.reshape(d, side * side, k)
+    flat_g = heat_g.reshape(d, side * side, k)
+    top2 = np.sort(flat_c, axis=1)[:, -2:]
+    scale = float(np.abs(heat_c).max())
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-4 * scale
+    equal = flat_c.argmax(axis=1) == flat_g.argmax(axis=1)
+    res.update({
+        "detections": {"valid": int(bc[3].sum()),
+                       "same_slot_share": float(same.mean()),
+                       "max_abs_box": float(np.abs(bc[0] - bg[0]).max())},
+        "heatmap_rel_err": _rel(heat_g, heat_c),
+        "keypoints_clear": int(clear.sum()),
+        "keypoints_clear_equal": int((equal & clear).sum()),
+        "keypoints_equal_all": int(equal.sum()),
+        "keypoints": int(equal.size)})
+    log("people", f"card vs CPU, full width, score_thresh 0: {res}")
+    check(max(res["pyramid_rel_err"]) < 1e-4, "P2-P6 within 1e-4 of each "
+          "map's max")
+    check(bc[3].sum() == 100, "100 valid detections at score_thresh 0")
+    check(res["detections"]["same_slot_share"] >= 0.95, "the box half on "
+          "the same input: >= 95 of 100 slots hold the same box")
+    check(res["heatmap_rel_err"] < 1e-4, "heatmaps within 1e-4 of scale")
+    check(res["keypoints_clear_equal"] == res["keypoints_clear"] > 0,
+          "keypoint cells equal wherever the top two heatmap values differ "
+          "by more than 1e-4 of scale")
+    return res
+
+
+def regressor_phase(cpu_regs, card_regs):
+    """14(d): both body-mesh regressors at full width (the bundled
+    ``BodyMeshRegressor`` configuration and ``METRONetwork`` with
+    HRNet-W64, 1024/256/128, 4 layers, 4 heads, MLP 3,072), seeded, a batch
+    of 4 seeded 224 x 224 crops on the card against the CPU: projected
+    vertices within 1e-4 in [-1, 1] units. Times: ms a crop at batch 1 and
+    4, uint8 crops in and vertices out (card: median of 5, CUDA events;
+    CPU: one call after the comparison's)."""
+    crops = (np.random.RandomState(SEED + 14).rand(4, 224, 224, 3)
+             * 255).astype(np.uint8)
+    out = {}
+    for name, card in card_regs.items():
+        cpu = cpu_regs[name]
+        got, want = card(crops), cpu(crops)
+        row = {"max_abs_err": float(np.abs(got - want).max()),
+               "spread": float(want.std(axis=1).mean()),
+               "params_m": sum(p.numel() for p in card.model.parameters())
+               / 1e6}
+        for b in (1, 4):
+            row[f"card_ms_a_crop_b{b}"] = time_ms(
+                lambda: card(crops[:b]), reps=5) / b
+            t = time.perf_counter()
+            cpu(crops[:b])
+            row[f"cpu_ms_a_crop_b{b}"] = 1e3 * (time.perf_counter() - t) / b
+        log("people", f"{name}, full width, seeded: {row}")
+        check(got.shape == (4, 431, 2) and np.isfinite(got).all(),
+              f"{name}: [4, 431, 2] finite vertices")
+        check(row["max_abs_err"] <= 1e-4, f"{name}: card and CPU vertices "
+              "within 1e-4")
+        out[name] = row
+    return out
+
+
+def people_chain_phase(cpu_regs, card_regs, template):
+    """14(e): the per-image people function on the card's machine (no cv2,
+    no PIL) on both people fixtures (``records/port_fixtures``), with the
+    trained tiny detector's boxes and scores that the JAX package finds
+    there (seeded detectors find no person at 0.9) and each seeded
+    regressor, on the card and on the CPU: equal rows."""
+    rows = {}
+    for i in (0, 1):
+        frame = np.load(PEOPLE_FIXTURE.format(i, "frame"))
+        water = np.load(PEOPLE_FIXTURE.format(i, "mask"))
+        det = np.load(PEOPLE_FIXTURE.format(i, "det"))
+        inst = Instances(boxes=det[:, :4], scores=det[:, 4],
+                         classes=np.zeros(len(det), np.int32))
+        for name in card_regs:
+            got = {}
+            for where, regs in (("card", card_regs), ("cpu", cpu_regs)):
+                ratio, depth, canvases = people_depth(
+                    frame, inst, water, regs[name], template)
+                got[where] = [None if v is None else round(float(v), 4)
+                              for v in (ratio, depth)]
+                check(canvases is not None, "a person scores >= 0.9")
+            rows.setdefault(f"scene{i}", {})[name] = got
+            check(got["card"] == got["cpu"], f"scene {i}, {name}: card and "
+                  "CPU rows are equal")
+    res = {"rows": rows, "image_libraries": sorted(
+        m for m in ("cv2", "PIL") if m in sys.modules)}
+    log("people", f"chain without cv2: {res}")
+    check(not res["image_libraries"], "the chain imported no cv2 or PIL")
+    return res
+
+
+def people_phase():
+    """Phase 14: (b) the Keypoint R-CNN R-101 at full width (its two NMS
+    inputs and launches), (a) the NMS kernel at the one-class box head's
+    shape and on those inputs, (c) card against CPU, (d) both body-mesh
+    regressors, (e) the chain."""
+    cfg = keypoint_rcnn_config()
+    state = seeded_init(GeneralizedRCNN(cfg), SEED).state_dict()
+    cpu_regs = {"bodymesh": MeshRegressor(mesh_seeded_init(
+                    BodyMeshRegressor(), SEED)),
+                "metro_hrnet_w64": MeshRegressor(mesh_seeded_init(
+                    METRONetwork(), SEED))}
+    card_regs = {k: MeshRegressor(copy.deepcopy(r.model).to(DEV))
+                 for k, r in cpu_regs.items()}
+    template = load_template_3d()
+
+    def chain(frame, water, inst):
+        return people_depth(frame, inst, water, card_regs["bodymesh"],
+                            template)
+
+    res, captured, launches = detector_phase(
+        state, cfg, chain, PEOPLE_STAGES,
+        ("keypoint_heatmaps", (100, 56, 56, 17)), "people")
+    res["keypoint_head_share"] = (res["stages_ms"]["keypoint_head"]
+                                  / res["forward_ms"])
+    res["nms"] = nms_phase(captured, _nms_one_class_case(),
+                           ("box_one_class",))
+    res["card_vs_cpu"] = people_card_cpu_phase(state)
+    res["regressors"] = regressor_phase(cpu_regs, card_regs)
+    res["chain"] = people_chain_phase(cpu_regs, card_regs, template)
+    return res, launches
 
 
 def bf16_model(model):
@@ -2494,6 +2728,8 @@ def main():
                              "count_kernel") + cc_names)
     torch.cuda.empty_cache()
     stopsign, launches_nms = stopsign_phase()
+    torch.cuda.empty_cache()
+    people, launches_people = people_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -2503,11 +2739,12 @@ def main():
         row["launches_batch_float32"] = launches_b32[row["name"]]
         if row["name"] in batch_k:
             row["batch4"] = batch_k[row["name"]]
-    kernels.append(nms_row(stopsign, launches_nms, build))
+    kernels.append(nms_row(stopsign, launches_nms, build, people,
+                           launches_people))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
                       "waterlevel": waterlevel, "batch": batch,
-                      "stopsign": stopsign}),
+                      "stopsign": stopsign, "people": people}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

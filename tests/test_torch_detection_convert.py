@@ -10,8 +10,9 @@
 - ``convert_rcnn_variables`` uses every Flax array of a tiny PointRend
   model exactly once and fills every port parameter; an extra array
   raises.
-- ``load_default_detector`` reads the bundled tiny checkpoint with its
-  sidecar configuration, and refuses an orbax directory.
+- ``load_default_detector`` reads the bundled tiny checkpoints with their
+  sidecar configurations (the people one builds the mask and keypoint
+  heads side by side), and refuses an orbax directory.
 """
 
 import pickle
@@ -181,5 +182,8 @@ def test_load_default_detector(tmp_path):
     assert det.device == torch.device("cpu")
     with pytest.raises(ValueError, match="orbax"):
         load_default_detector("stopsign", str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        load_default_detector("people", device="cpu")
+    people = load_default_detector("people", device="cpu").cfg
+    assert (people.blocks, people.with_masks, people.with_keypoints) == \
+        ((1, 1, 1, 1), True, True)
+    with pytest.raises(ValueError, match="unknown"):
+        load_default_detector("cars", device="cpu")

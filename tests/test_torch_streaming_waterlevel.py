@@ -19,7 +19,7 @@ of the model takes about 30 s on the CPU, and it finds water there.
   the smoothing spreads one frame's difference to its neighbours, so the
   unsmoothed resolver levels are compared frame by frame, on the frames
   whose columns agree.
-- The CLI refuses the detection options and runs ``--opt ref
+- The CLI runs ``--opt people`` (no masks: no rows) and ``--opt ref
   --streaming`` on the CPU.
 """
 
@@ -236,9 +236,10 @@ def test_cli_refuses_detection_and_runs_streaming(tmp_path, monkeypatch):
     base = ["waterlevel", "--test-path", str(frame_dir), "--test-name",
             "houston_s", "--out-dir", str(out), "--record-dir",
             str(tmp_path / "records"), "--device", "cpu"]
+    # --opt people runs (no masks under the default --seg-dir: no rows)
     monkeypatch.setattr(sys, "argv", base + ["--opt", "people"])
-    with pytest.raises(SystemExit, match="not ported"):
-        waterlevel.main()
+    waterlevel.main()
+    assert (out / "houston_s_people" / "waterdepth.txt").read_text() == ""
     monkeypatch.setattr(sys, "argv", base + ["--opt", "ref", "--streaming"])
     waterlevel.main()
     df = pd.read_csv(out / "houston_s_ref" / "waterlevel.csv", index_col=0,

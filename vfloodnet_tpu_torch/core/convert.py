@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's AFB-URR, LinkNet and Generalized R-CNN
-variables -> the port's ``state_dict``.
+"""Weight bridge: the JAX package's AFB-URR, LinkNet, Generalized R-CNN and
+body-mesh (``BodyMeshRegressor``, ``METRONetwork``) variables -> the
+port's ``state_dict``.
 
 Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
 the Flax variables themselves, as numpy), ``params/...`` and
@@ -180,3 +181,74 @@ def convert_rcnn_variables(variables: Dict[str, Any]
         raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in out.items()}
+
+
+def _mesh_port_path(path: str) -> str:
+    """A Flax path of the body-mesh models -> the port's module path: a
+    ResNet layer's ``blockN`` is its Sequential's ``N``; the encoder
+    stages' ``blockN`` keep their names."""
+    return re.sub(r"(layer\d)/block(\d+)", r"\1.\2", path).replace("/", ".")
+
+
+def convert_metro_variables(variables: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``METRONetwork``, ``HRNet`` or ``BodyMeshRegressor``
+    variables
+    (a flat npz, or the Flax tree as numpy; ``params``, ``batch_stats`` and
+    METRO's ``smpl`` buffers) -> a ``state_dict`` for
+    :class:`vfloodnet_tpu_torch.models.metro.METRONetwork` or
+    ``BodyMeshRegressor``.
+
+    Conv kernels go from HWIO to OIHW, dense kernels [in, out] to [out,
+    in]. Flax attention's query, key and value kernels [in, heads,
+    head_dim] become [heads x head_dim, in] and their biases [heads,
+    head_dim] flat; its output kernel [heads, head_dim, out] becomes [out,
+    heads x head_dim]. A ``scale`` with running statistics is a FrozenBN
+    (``weight = scale / sqrt(var + 1e-5)``), one without a LayerNorm's
+    weight. Embeddings and ``smpl`` buffers are kept as they are. Every
+    Flax array is used exactly once; a key left over raises."""
+    flat = flatten(variables)
+    out: Dict[str, np.ndarray] = {}
+    used = set()
+    for key in sorted(flat):
+        kind, _, rest = key.partition("/")
+        if kind == "smpl":
+            out[rest] = np.asarray(flat[key], np.float32)
+            used.add(key)
+            continue
+        if kind != "params":
+            continue
+        path, _, leaf = rest.rpartition("/")
+        port = _mesh_port_path(path) + "." if path else ""
+        arr = np.asarray(flat[key], np.float32)
+        used.add(key)
+        if leaf == "kernel" and arr.ndim == 4:
+            out[port + "weight"] = _oihw(arr)
+        elif leaf == "kernel" and arr.ndim == 3 and path.endswith("/out"):
+            out[port + "weight"] = np.ascontiguousarray(
+                arr.reshape(-1, arr.shape[-1]).T)
+        elif leaf == "kernel" and arr.ndim == 3:
+            out[port + "weight"] = np.ascontiguousarray(
+                arr.reshape(arr.shape[0], -1).T)
+        elif leaf == "kernel":
+            out[port + "weight"] = np.ascontiguousarray(arr.T)
+        elif leaf == "bias":
+            out[port + "bias"] = arr.reshape(-1)
+        elif leaf == "scale" and f"batch_stats/{path}/var" in flat:
+            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
+            out[port + "weight"] = arr * np.reciprocal(
+                np.sqrt(var + np.float32(BN_EPS)))
+            out[port + "mean"] = np.asarray(
+                flat[f"batch_stats/{path}/mean"], np.float32)
+            used.update((f"batch_stats/{path}/var",
+                         f"batch_stats/{path}/mean"))
+        elif leaf == "scale":          # LayerNorm
+            out[port + "weight"] = arr
+        else:                          # token and position embeddings
+            out[port + leaf] = arr
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+

@@ -9,8 +9,9 @@ key as its converter maps them, and then through
 port exactly the weights the JAX package would run. That includes the JAX
 converter's mask deconvolution: Detectron2's [in, out, kh, kw] weight
 becomes the Flax kernel [kh, kw, in, out] unflipped, which the Flax layer
-applies flipped relative to Detectron2's ``ConvTranspose2d``. Unknown heads
-are skipped with a report; keypoint heads wait for the people slice.
+applies flipped relative to Detectron2's ``ConvTranspose2d``, and the
+same for the keypoint head's ``score_lowres``. Unknown heads are skipped
+with a report.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def _dense(w: np.ndarray) -> np.ndarray:
 
 
 def d2_to_flax(sd: Mapping[str, np.ndarray], with_masks: bool = False,
-               with_pointrend: bool = False) -> Dict[str, np.ndarray]:
+               with_pointrend: bool = False, with_keypoints: bool = False
+               ) -> Dict[str, np.ndarray]:
     """A Detectron2 ``model`` dict -> the JAX package's flat variables
     ('/'-joined ``params/...`` and ``batch_stats/...`` paths)."""
     out: Dict[str, np.ndarray] = {}
@@ -125,6 +127,17 @@ def d2_to_flax(sd: Mapping[str, np.ndarray], with_masks: bool = False,
                 layer("point_head/predictor", key.rsplit(".", 1)[1], val,
                       _dense)
                 continue
+        if with_keypoints:
+            m = re.match(r"roi_heads\.keypoint_head\.conv_fcn(\d)"
+                         r"\.(weight|bias)", key)
+            if m:
+                idx, leaf = m.groups()
+                layer(f"keypoint_head/conv{int(idx) - 1}", leaf, val)
+                continue
+            if key.startswith("roi_heads.keypoint_head.score_lowres."):
+                layer("keypoint_head/deconv", key.rsplit(".", 1)[1], val,
+                      lambda w: np.transpose(w, (2, 3, 0, 1)))
+                continue
         skipped.append(key)
     if skipped:
         print(f"convert_d2: skipped {len(skipped)} keys "
@@ -134,11 +147,13 @@ def d2_to_flax(sd: Mapping[str, np.ndarray], with_masks: bool = False,
 
 def convert_d2_state_dict(sd: Mapping[str, np.ndarray],
                           with_masks: bool = False,
-                          with_pointrend: bool = False
+                          with_pointrend: bool = False,
+                          with_keypoints: bool = False
                           ) -> Dict[str, torch.Tensor]:
     """A Detectron2 ``model`` dict -> a ``state_dict`` for the port's
     :class:`~vfloodnet_tpu_torch.models.detection.GeneralizedRCNN`."""
-    return convert_rcnn_variables(d2_to_flax(sd, with_masks, with_pointrend))
+    return convert_rcnn_variables(d2_to_flax(sd, with_masks, with_pointrend,
+                                             with_keypoints))
 
 
 def convert_d2_checkpoint(path: str, **kwargs) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,7 @@
 """ROI heads (counterpart of ``vfloodnet_tpu.models.detection.heads``): the
-box head, the mask head, PointRend's coarse mask head and point head,
-box inference and PointRend's subdivision. Static shapes throughout: a
-fixed detection count with a validity mask.
+box head, the mask head, PointRend's coarse mask head and point head, the
+keypoint head, box inference and PointRend's subdivision. Static shapes
+throughout: a fixed detection count with a validity mask.
 
 ROI features stay in the JAX package's [R, S, S, C] layout, so the fully
 connected heads flatten them in its (y, x, channel) order and take its
@@ -115,6 +115,35 @@ class PointHead(nn.Module):
             h = F.relu(getattr(self, f"fc{i}")(h))
             h = torch.cat([h, coarse], dim=-1)
         return self.predictor(h)
+
+
+class KeypointHead(nn.Module):
+    """8 x conv(512) + a 4x4 stride-2 deconvolution + a 2x linear upsample
+    -> [R, 56, 56, K] heatmaps (K = 17 COCO keypoints).
+
+    The Flax ``ConvTranspose`` (4x4, stride 2, padding "SAME") pads the
+    stride-dilated input by (2, 2) and correlates it with the kernel
+    unflipped: ``ConvTranspose2d(k=4, s=2, p=1)`` with the kernel flipped
+    spatially (the weight bridge flips it), 14 -> 28. The upsample is
+    ``jax.image.resize``'s ``linear`` (half-pixel centres), 28 -> 56."""
+
+    def __init__(self, num_keypoints: int = 17, in_channels: int = 256,
+                 conv_dim: int = 512, num_conv: int = 8):
+        super().__init__()
+        self.num_conv = num_conv
+        for i in range(num_conv):
+            self.add_module(f"conv{i}", nn.Conv2d(
+                in_channels if i == 0 else conv_dim, conv_dim, 3, padding=1))
+        self.deconv = nn.ConvTranspose2d(conv_dim, num_keypoints, 4,
+                                         stride=2, padding=1)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:   # [R, S, S, C]
+        h = pooled.permute(0, 3, 1, 2)
+        for i in range(self.num_conv):
+            h = F.relu(getattr(self, f"conv{i}")(h))
+        h = self.deconv(h).permute(0, 2, 3, 1)
+        s = 2 * h.shape[1]
+        return resize(h, (s, s), method="bilinear")
 
 
 def box_inference(proposals: torch.Tensor, prop_valid: torch.Tensor,

@@ -4,16 +4,18 @@
 :class:`GeneralizedRCNN` has the JAX module's three halves as plain
 methods: :meth:`~GeneralizedRCNN.infer_front` (backbone, FPN, RPN),
 :meth:`~GeneralizedRCNN.infer_boxes` (box head, class-aware NMS) and
-:meth:`~GeneralizedRCNN.infer_tail` (mask heads); :meth:`refine` is
-PointRend's subdivision over every detection at once. Between them
-nothing is read back to the host, so on the card the forward makes no host
-sync. :func:`build_detector` wraps a model into the pipeline's detector:
-a BGR uint8 image in, :class:`Instances` out, with Detectron2's resize on
-the model's device and the masks pasted on the host (OpenCV's
-``INTER_LINEAR`` of ``ops/resize.py``: the card's machine has no cv2).
+:meth:`~GeneralizedRCNN.infer_tail` (mask and keypoint heads);
+:meth:`refine` is PointRend's subdivision over every detection at once.
+Between them nothing is read back to the host, so on the card the forward
+makes no host sync. :func:`build_detector` wraps a model into the
+pipeline's detector: a BGR uint8 image in, :class:`Instances` out, with
+Detectron2's resize on the model's device, the masks pasted (OpenCV's
+``INTER_LINEAR`` of ``ops/resize.py``: the card's machine has no cv2) and
+the keypoints read from their heatmaps (numpy's ``argmax``, the first
+index on ties) on the host.
 
 The JAX package's ``jit_split`` is not ported: it works around a TPU
-crash. Keypoint R-CNN (``with_keypoints``) waits for the people slice.
+crash.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from ...ops.resize import cv2_linear_f32, cv2_linear_u8
 from ...ops.roi_align import LevelTable
 from .backbone import DetectionResNet
 from .fpn import FPN
-from .heads import (BoxHead, CoarseMaskHead, MaskHead, PointHead,
-                    box_inference, pointrend_refine)
+from .heads import (BoxHead, CoarseMaskHead, KeypointHead, MaskHead,
+                    PointHead, box_inference, pointrend_refine)
 from .rpn import RPN
 
 # Detectron2 caffe-style preprocessing (BGR, mean-subtract, no std scaling)
@@ -65,10 +67,6 @@ class RCNNConfig:
 class GeneralizedRCNN(nn.Module):
     def __init__(self, cfg: RCNNConfig):
         super().__init__()
-        if cfg.with_keypoints:
-            raise NotImplementedError(
-                "Keypoint R-CNN (people) is not ported to vfloodnet_tpu_torch "
-                "yet (ROADMAP A3)")
         self.cfg = cfg
         self.backbone = DetectionResNet(tuple(cfg.blocks), cfg.groups,
                                         cfg.width_per_group)
@@ -81,6 +79,8 @@ class GeneralizedRCNN(nn.Module):
                               else MaskHead(cfg.num_classes))
         if cfg.with_pointrend:
             self.point_head = PointHead(cfg.num_classes)
+        if cfg.with_keypoints:
+            self.keypoint_head = KeypointHead(cfg.num_keypoints)
         self.register_buffer("pixel_mean",
                              torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32),
                              persistent=False)
@@ -119,17 +119,22 @@ class GeneralizedRCNN(nn.Module):
 
     def infer_tail(self, feats: LevelTable, boxes, det_scores, det_classes,
                    det_valid) -> Dict[str, torch.Tensor]:
-        """The mask head (PointRend's coarse head) on the detections."""
+        """The mask head (PointRend's coarse head) and the keypoint head on
+        the detections (one 14 x 14 ROIAlign for both)."""
         out = {"boxes": boxes, "scores": det_scores, "classes": det_classes,
                "valid": det_valid}
+        if self.cfg.with_masks or self.cfg.with_keypoints:
+            pooled = feats.roi_align(boxes, 14)
         if self.cfg.with_masks:
-            mask_logits = self.mask_head(feats.roi_align(boxes, 14))
+            mask_logits = self.mask_head(pooled)
             d, s = mask_logits.shape[:2]
             out["mask_logits"] = mask_logits.gather(
                 -1, det_classes.reshape(d, 1, 1, 1).expand(d, s, s, 1))[..., 0]
             if self.cfg.with_pointrend:
                 out["p2"] = feats.maps[0]
                 out["coarse_all"] = mask_logits
+        if self.cfg.with_keypoints:
+            out["keypoint_heatmaps"] = self.keypoint_head(pooled)
         return out
 
     def refine(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -162,6 +167,24 @@ def preprocess_bgr(img_bgr: np.ndarray, short: int, max_side: int,
     out = torch.zeros((ph, pw, 3), dtype=torch.float32, device=src.device)
     out[:nh, :nw] = cv2_linear_u8(src, (nh, nw))
     return out, scale
+
+
+def heatmaps_to_keypoints(heatmaps: np.ndarray, boxes: np.ndarray
+                          ) -> np.ndarray:
+    """[D, S, S, K] heatmaps -> [D, K, 3] (x, y, score) in image
+    coordinates: each keypoint at its heatmap's first maximum (numpy's
+    ``argmax``), the cell's centre mapped into its box."""
+    d, s, _, k = heatmaps.shape
+    flat = heatmaps.reshape(d, s * s, k)
+    idx = flat.argmax(axis=1)                          # [D, K]
+    score = flat.max(axis=1)
+    ys = (idx // s + 0.5) / s
+    xs = (idx % s + 0.5) / s
+    x1 = boxes[:, 0:1]
+    y1 = boxes[:, 1:2]
+    bw = np.maximum(boxes[:, 2:3] - boxes[:, 0:1], 1e-6)
+    bh = np.maximum(boxes[:, 3:4] - boxes[:, 1:2], 1e-6)
+    return np.stack([x1 + xs * bw, y1 + ys * bh, score], axis=-1)
 
 
 def paste_mask(mask_logit: np.ndarray, box: np.ndarray, out_hw,
@@ -209,9 +232,13 @@ class Detector:
             masks = np.zeros((n,) + tuple(hw), np.uint8)
             for i in range(n):
                 masks[i] = paste_mask(out["mask_logits"][i], boxes[i], hw)
+        keypoints = None
+        if "keypoint_heatmaps" in out:
+            keypoints = heatmaps_to_keypoints(out["keypoint_heatmaps"][:n],
+                                              boxes[:n])
         return Instances(boxes=boxes[:n], scores=out["scores"][:n],
                          classes=out["classes"][:n].astype(np.int32),
-                         masks=masks)
+                         masks=masks, keypoints=keypoints)
 
     def __call__(self, img_bgr: np.ndarray):
         padded, scale = self.preprocess(img_bgr)
@@ -229,6 +256,12 @@ def stopsign_rcnn_config() -> RCNNConfig:
     """PointRend X-101-32x8d instance segmentation (stop signs)."""
     return RCNNConfig(groups=32, width_per_group=8, score_thresh=0.5,
                       with_masks=True, with_pointrend=True)
+
+
+def keypoint_rcnn_config() -> RCNNConfig:
+    """Keypoint R-CNN R-101 (people)."""
+    return RCNNConfig(groups=1, width_per_group=64, score_thresh=0.7,
+                      num_classes=1, with_keypoints=True)
 
 
 def _sidecar_config(path: str) -> Optional[RCNNConfig]:
@@ -287,31 +320,35 @@ def seeded_init(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def load_default_detector(opt: str, model_path: Optional[str] = None,
                           device="cuda") -> Detector:
-    """The detector for ``--opt stopsign``. Weights: ``model_path``, else
-    ``records/pointrend_x101_tpu``, else the bundled tiny checkpoint
-    (``records/checkpoints/stopsign_tiny/best.npz``); a flat ``.npz`` of
-    the JAX package goes through :func:`convert_rcnn_variables`, its
-    ``rcnn_config.json`` sidecar choosing the configuration. An orbax
-    directory raises. Without any checkpoint, seeded weights with a
-    warning (smoke mode)."""
+    """The detector for ``--opt stopsign`` or ``--opt people``. Weights:
+    ``model_path``, else ``records/pointrend_x101_tpu`` (stop signs) or
+    ``records/keypoint_r101_tpu`` (people), else the bundled tiny
+    checkpoint (``records/checkpoints/{stopsign,people}_tiny/best.npz``);
+    a flat ``.npz`` of the JAX package goes through
+    :func:`convert_rcnn_variables`, its ``rcnn_config.json`` sidecar
+    choosing the configuration (default: :func:`stopsign_rcnn_config` or
+    :func:`keypoint_rcnn_config`). An orbax directory raises. Without any
+    checkpoint, seeded weights with a warning (smoke mode)."""
     from ...core.checkpoint import load_flat_npz
     from ...core.convert import convert_rcnn_variables
 
-    if opt != "stopsign":
-        raise NotImplementedError(
-            f"--opt {opt}: only stopsign detection is ported to "
-            "vfloodnet_tpu_torch (people: ROADMAP A3)")
+    defaults = {"stopsign": ("pointrend_x101_tpu", "stopsign_tiny",
+                             stopsign_rcnn_config),
+                "people": ("keypoint_r101_tpu", "people_tiny",
+                           keypoint_rcnn_config)}
+    if opt not in defaults:
+        raise ValueError(f"unknown detection option {opt!r}")
+    default_dir, tiny, default_cfg = defaults[opt]
     device = resolve_device(device)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    path = model_path or os.path.join(repo, "records", "pointrend_x101_tpu")
+    path = model_path or os.path.join(repo, "records", default_dir)
     if (not model_path or not os.path.exists(model_path)) and \
             not os.path.exists(path):
-        demo = os.path.join(repo, "records", "checkpoints", "stopsign_tiny",
-                            "best.npz")
+        demo = os.path.join(repo, "records", "checkpoints", tiny, "best.npz")
         if os.path.exists(demo):
             path = demo
-    cfg = _sidecar_config(path) or stopsign_rcnn_config()
+    cfg = _sidecar_config(path) or default_cfg()
     model = GeneralizedRCNN(cfg)
     if path.endswith(".npz") and os.path.exists(path):
         model.load_state_dict(convert_rcnn_variables(load_flat_npz(path)))

@@ -1,8 +1,9 @@
 """ResNet-50 feature backbone with frozen BatchNorm, NCHW (counterpart of
 ``vfloodnet_tpu.models.resnet``).
 
-Stem + layer1 (1/4, 256) + layer2 (1/8, 512) + layer3 (1/16, 1024); AFB-URR
-never uses layer4. BatchNorm always runs with its stored statistics.
+Stem + layer1 (1/4, 256) + layer2 (1/8, 512) + layer3 (1/16, 1024), and
+layer4 (1/32, 2048) with ``with_layer4`` (METRO's torchvision trunk; AFB-URR
+never uses it). BatchNorm always runs with its stored statistics.
 
 The JAX memory encoder adds its mask planes to the stem by concatenating
 their 7x7 kernels (``StemKernel``) to the frame's along the input channels;
@@ -98,16 +99,21 @@ def _layer(cin: int, features: int, blocks: int, stride: int,
 
 
 class ResNet50Backbone(nn.Module):
-    """Returns (r4 1/16 1024ch, r3 1/8 512ch, r2 1/4 256ch, r1 1/2 64ch)."""
+    """Returns (r4 1/16 1024ch, r3 1/8 512ch, r2 1/4 256ch, r1 1/2 64ch), or
+    with ``with_layer4`` (r5 1/32 2048ch, r4, r3, r2)."""
 
     def __init__(self, in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 with_layer4: bool = False):
         super().__init__()
         self.conv1 = _conv(in_channels, 64, 7, 2, dtype)
         self.bn1 = FrozenBN(64, dtype)
         self.layer1 = _layer(64, 64, 3, 1, dtype)
         self.layer2 = _layer(256, 128, 4, 2, dtype)
         self.layer3 = _layer(512, 256, 6, 2, dtype)
+        self.with_layer4 = with_layer4
+        if with_layer4:
+            self.layer4 = _layer(1024, 512, 3, 2, dtype)
 
     def forward(self, x: torch.Tensor):
         r1 = F.relu(self.bn1(self.conv1(x)))
@@ -115,4 +121,6 @@ class ResNet50Backbone(nn.Module):
         r2 = self.layer1(y)
         r3 = self.layer2(r2)
         r4 = self.layer3(r3)
+        if self.with_layer4:
+            return self.layer4(r4), r4, r3, r2
         return r4, r3, r2, r1

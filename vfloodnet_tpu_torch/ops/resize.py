@@ -43,6 +43,10 @@ package resizes with cv2 (the card's machine has none):
 - :func:`cv2_linear_f32`: the float32 form with the same positions and
   float weights, edges clamped alike. OpenCV's float kernels round in
   another order: about 1e-6 of the value apart.
+
+and OpenCV's ``INTER_NEAREST`` (:func:`cv2_nearest`, the person crop's
+water mask), a third nearest rule: ``min(floor(i * (1 / fx)), n_in - 1)``
+in float64 with ``fx = n_out / n_in``.
 """
 
 from __future__ import annotations
@@ -266,3 +270,17 @@ def cv2_linear_f32(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     rows = img[:, x0] * a0 + img[:, x1] * a1
     return (rows[y0] * b0[:, None] + rows[y1] * b1[:, None]).astype(
         np.float32)
+
+
+def _cv2_nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    inv = 1.0 / (np.float64(n_out) / np.float64(n_in))
+    return np.minimum(np.floor(np.arange(n_out) * inv).astype(np.int64),
+                      n_in - 1)
+
+
+def cv2_nearest(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`` of an
+    [H, W] or [H, W, C] array."""
+    h, w = img.shape[:2]
+    return img[_cv2_nearest_index(h, out_hw[0])][
+        :, _cv2_nearest_index(w, out_hw[1])]

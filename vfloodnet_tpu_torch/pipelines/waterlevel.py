@@ -1,7 +1,8 @@
 """Water-level estimation CLI (counterpart of ``est_waterlevel.py``):
 
     python -m vfloodnet_tpu_torch.pipelines.waterlevel --test-path FRAMES \\
-        --test-name NAME --opt {ref,stopsign} [--streaming] [--device cpu]
+        --test-name NAME --opt {ref,stopsign,people} [--streaming] \\
+        [--device cpu]
 
 ``--opt ref`` reads the segmentation stage's masks
 (``<seg-dir>/<name>/mask``) and tracks a reference object
@@ -9,12 +10,13 @@
 segments the frames itself and scans each frame's mask on the device
 (:func:`.streaming_waterlevel.run_streaming_waterlevel`), with the video
 model of ``--model-path`` (a flat ``.npz`` of the JAX package; default:
-the bundled checkpoint). ``--opt stopsign`` reads the same masks, detects
-stop signs (:func:`.object_detection.est_by_obj_detection`, the detector of
+the bundled checkpoint). ``--opt stopsign`` and ``--opt people`` read the
+same masks, detect stop signs or people
+(:func:`.object_detection.est_by_obj_detection`, the detector of
 ``--det-model-path``: a flat ``.npz`` of the JAX package with its
-``rcnn_config.json`` sidecar; default: the bundled tiny checkpoint) and
-writes ``waterdepth.txt``. Results go to ``<out-dir>/<name>_<opt>``.
-``--opt people`` is not ported yet.
+``rcnn_config.json`` sidecar; default: the bundled tiny checkpoint; people
+also run the bundled body-mesh regressor) and write ``waterdepth.txt``.
+Results go to ``<out-dir>/<name>_<opt>``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def _args():
                    help="Video model for --streaming (flat .npz; default: "
                         "the bundled checkpoint)")
     p.add_argument("--det-model-path", type=str, default=None,
-                   help="Detector checkpoint for --opt stopsign (flat .npz; "
+                   help="Detector checkpoint for --opt stopsign/people "
+                        "(flat .npz; "
                         "an rcnn_config.json beside it selects the "
                         "variant; default: the bundled checkpoint)")
     p.add_argument("--device", type=str, default="cuda",
@@ -60,10 +63,6 @@ def _args():
 
 def main() -> None:
     args = _args()
-    if args.opt == "people":
-        raise SystemExit("--opt people (detection-based depth) is not "
-                         "ported to vfloodnet_tpu_torch yet (ROADMAP A3); "
-                         "use est_waterlevel.py")
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -74,7 +73,7 @@ def main() -> None:
     mask_dir = os.path.join(args.seg_dir, args.test_name, "mask")
     masks = [os.path.join(mask_dir, os.path.splitext(
         os.path.basename(p))[0] + ".png") for p in img_list]
-    if args.opt == "stopsign":
+    if args.opt in ("stopsign", "people"):
         from .object_detection import est_by_obj_detection
         out = est_by_obj_detection(img_list, masks, out_dir, args.opt,
                                    det_model_path=args.det_model_path,

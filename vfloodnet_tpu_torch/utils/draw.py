@@ -1,7 +1,8 @@
-"""``cv2.line`` in numpy, for the stop-sign canvases (the card's machine has
-no cv2): OpenCV's thick 8-connected line, a convex quadrilateral filled by
-its scan converter in 16-bit fixed point with 8-connected edges, and a
-filled disc of radius thickness / 2 at each end."""
+"""``cv2.line`` and a zero-radius ``cv2.circle`` in numpy, for the
+depth canvases (the card's machine has no cv2): OpenCV's thick 8-connected
+line, a convex quadrilateral filled by its scan converter in 16-bit fixed
+point with 8-connected edges, and a filled disc of radius thickness / 2 at
+each end; the circle of radius 0 is such a line of length 0."""
 
 from __future__ import annotations
 
@@ -169,3 +170,11 @@ def line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> None:
     for x, y in ((x0, y0), (x1, y1)):
         _disc(img, (x + (XY_ONE >> 1)) >> XY_SHIFT,
               (y + (XY_ONE >> 1)) >> XY_SHIFT, radius, color)
+
+
+def dot(img: np.ndarray, center, color, thickness: int) -> None:
+    """``cv2.circle(img, center, 0, color, thickness)`` for thickness > 1,
+    in place: OpenCV draws a zero-radius circle as a one-point ellipse
+    polygon, a thick line from the point to itself, so a disc of radius
+    thickness / 2 (rounded) at the point, twice."""
+    line(img, center, center, color, thickness)
