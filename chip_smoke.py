@@ -154,6 +154,28 @@ Phases, each printing one line with its elapsed seconds:
    per-image people function on both people fixtures with the trained
    tiny detector's boxes and each seeded regressor, card and CPU rows
    equal, no cv2 or PIL imported.
+15. AFB-URR training (``train/``; float32 but where (b) says float64,
+   TF32 off, cuDNN deterministic, the trained weights carried into the
+   training form): (a) the reference recipe at full width, seeded 400 x
+   400 clips of 6 frames and 3 objects, lr 1e-5, lambda_u 0.5, frozen BN:
+   ms a step (median of 5 after 2, CUDA events), peak memory (above what
+   earlier phases left allocated: the model, optimiser, gradients and
+   steps) and the losses (finite) at batch 1 and 4, each also with
+   ``remat`` (each clip recomputed in the backward pass), whose losses
+   must be equal and whose peak at batch 4 lower; (b) one step of the
+   same weights on each of two 240-px clips (3 frames, 2 objects), card
+   against CPU (see :func:`train_card_cpu_phase`): in float64 the losses
+   within 1e-9 relative and every gradient leaf within 1e-6 of its scale;
+   in float32 the losses within 5e-5 relative, the gradients' global
+   norms within 5e-4 relative; (d) 30 steps on one repeated clip (lr
+   1e-4): the last loss below the first; none of the port's kernels
+   launched in (a), (b), (d) (the training read is the plain dense read);
+   (c) ``run_video_training`` with the demo recipe (240 px, clip_n 4,
+   obj_n 2, lr 1e-4, live BN) over 4 seeded clips: 3 epochs straight
+   against 2 epochs and a third resumed from ``final.pt``, which must end
+   with equal losses, weights, statistics and optimiser state; then
+   ``load_afb_urr`` of its ``best.npz`` segments a frame on the graph
+   engine.
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
@@ -161,8 +183,9 @@ each kernel's launches in phase 11 as ``launches_waterlevel`` and in
 phase 12(b) and (c) as ``launches_batch`` and
 ``launches_batch_float32``, its phase-12(a) numbers as ``batch4``, the
 batch phases' under ``batch``, phase 13's under ``stopsign``, phase 14's
-under ``people``; the NMS kernel's row counts its launches an image, the
-people detector's under ``people``) and, last,
+under ``people``, phase 15's under ``training``; the NMS kernel's row
+counts its launches an image, the people detector's under ``people``)
+and, last,
 ``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
 the read with its combine (the function that its plain version and the
 yardstick compute) and gives the read kernel alone as
@@ -184,6 +207,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -225,6 +249,11 @@ from vfloodnet_tpu_torch.pipelines.object_detection import (
     Instances, load_template_3d, make_stopsign_template, people_depth,
     stopsign_depth)
 from vfloodnet_tpu_torch.utils.draw import XY_SHIFT, _fill_convex
+from vfloodnet_tpu_torch.core import convert_afb_urr_variables, load_flat_npz
+from vfloodnet_tpu_torch.train import (VideoTrainConfig,
+                                       init_video_train_state,
+                                       make_video_train_step,
+                                       run_video_training)
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -2650,6 +2679,341 @@ def people_phase():
     return res, launches
 
 
+TRAIN_LR = 1e-5          # the trainer CLI's default (train_video_seg.py)
+DEMO_LR = 1e-4           # scripts/train_demo_checkpoints.py's video rate
+
+
+def training_clips(n, clip_n, obj_n, size, seed):
+    """``n`` seeded pseudo-video clips as the trainer takes them: frames
+    [n, clip_n, S, S, 3] float32 in [0, 1] and one-hot masks [n, clip_n,
+    obj_n, S, S]: a sky over water below a wavy waterline that moves from
+    frame to frame, with ``obj_n`` 3 a drifting boat (label 2) on it; a
+    ripple and noise on top. The card's machine has no image decoder."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32) / size
+    frames = np.zeros((n, clip_n, size, size, 3), np.float32)
+    masks = np.zeros((n, clip_n, obj_n, size, size), np.float32)
+    for i in range(n):
+        sky, sea, boat = (rng.uniform(lo, hi, 3) for lo, hi in
+                          ((0.5, 0.9), (0.1, 0.4), (0.6, 1.0)))
+        phase, level = rng.uniform(0, 6), rng.uniform(0.45, 0.6)
+        cx, cy = rng.uniform(0.3, 0.7), level + 0.15
+        for t in range(clip_n):
+            d = 0.02 * t
+            label = (yy + 0.05 * np.sin(9 * xx + phase + d)
+                     > level + 0.3 * d).astype(np.int64)
+            if obj_n > 2:
+                label[(xx - cx - d) ** 2 + (yy - cy) ** 2 < 0.01] = 2
+            img = np.stack([sky, sea, boat])[label]
+            img = img + 0.08 * np.sin(40 * xx + 13 * yy + d)[..., None] \
+                * (label > 0)[..., None]
+            frames[i, t] = np.clip(img + 0.03 * rng.standard_normal(
+                img.shape), 0, 1)
+            masks[i, t] = np.eye(obj_n, dtype=np.float32)[label].transpose(
+                2, 0, 1)
+    return frames, masks
+
+
+def wavy_clip(size, seed=0):
+    """One seeded clip of 3 frames and 2 objects, as the trainer takes it:
+    a sky over a wavy waterline that rises from frame to frame, noise on
+    top; its loss sits at 1.5 where the scene clips' start near 5."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    frames = np.zeros((1, 3, size, size, 3), np.float32)
+    masks = np.zeros((1, 3, 2, size, size), np.float32)
+    for t in range(3):
+        water = yy + 0.05 * np.sin(9 * xx + t) > 0.5 + 0.02 * t
+        img = np.where(water[..., None], [0.2, 0.3, 0.4], [0.8, 0.8, 0.9])
+        frames[0, t] = np.clip(img + 0.03 * rng.standard_normal(img.shape),
+                               0, 1)
+        masks[0, t, 1], masks[0, t, 0] = water, ~water
+    return frames, masks
+
+
+# phase 15(b)'s clips, 240 px, 3 frames, 2 objects
+CARD_CPU_CLIPS = {
+    "wavy": lambda: wavy_clip(240),
+    "scene": lambda: training_clips(1, 3, 2, 240, SEED + 16),
+}
+
+
+def training_form(variables, dev, dtype=torch.float32):
+    """The training form of the AFB-URR with ``variables``, computing in
+    ``dtype`` (float32, or float64 for a reference)."""
+    model = AFBURR(trainable_bn=True, dtype=dtype)
+    model.load_state_dict(convert_afb_urr_variables(variables,
+                                                    trainable_bn=True))
+    return model.to(dev, dtype)
+
+
+def _train_cfg(**kw):
+    return VideoTrainConfig(**{"lr": TRAIN_LR, **kw})
+
+
+def _timed_train_steps(model, cfg, frames, masks, steps=7, warm=2):
+    """(median ms a step over ``steps - warm`` steps after ``warm``, CUDA
+    events; peak memory allocated over all of them, bytes, counting what
+    earlier phases left allocated; every step's loss)."""
+    opt = init_video_train_state(model, cfg)
+    step = make_video_train_step(model, opt, cfg)
+    f = torch.from_numpy(frames).to(DEV)
+    m = torch.from_numpy(masks).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(f, m)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(loss.item())
+    check(all(np.isfinite(losses)), f"finite training losses {losses}")
+    return (float(np.median(times[warm:])),
+            int(torch.cuda.max_memory_allocated()), losses)
+
+
+def train_recipe_phase(variables):
+    """15(a): the reference recipe at full width (400 x 400, clip_n 6,
+    obj_n 3, lr 1e-5, lambda_u 0.5, frozen BN) from the trained weights, at
+    batch 1 and 4, each also with ``remat`` (each clip recomputed in the
+    backward pass), whose losses must equal the plain step's and whose
+    peak memory must be lower at batch 4, where one clip's activations
+    are held at a time instead of four."""
+    out = {}
+    for name, batch, remat in (("batch1", 1, False), ("batch4", 4, False),
+                               ("batch1_remat", 1, True),
+                               ("batch4_remat", 4, True)):
+        cfg = _train_cfg(remat=remat)
+        frames, masks = training_clips(batch, cfg.clip_n, cfg.max_obj_n,
+                                       cfg.output_size, SEED + 15)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()     # earlier phases' leftovers
+        model = training_form(variables, DEV)
+        ms, peak, losses = _timed_train_steps(model, cfg, frames, masks)
+        peak -= base                 # model, optimiser, gradients, steps
+        out[name] = {"ms_step": ms, "peak_gb": peak / 1e9,
+                     "losses": losses}
+        log("train", f"{name}: {ms:.2f} ms a step (median of 5 after 2), "
+            f"peak {peak / 1e9:.3f} GB, losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}")
+        del model
+        torch.cuda.empty_cache()
+    for b in ("batch1", "batch4"):
+        check(out[b + "_remat"]["losses"] == out[b]["losses"],
+              f"{b}: remat gives the plain step's losses")
+    check(out["batch4_remat"]["peak_gb"] < out["batch4"]["peak_gb"],
+          "remat lowers the peak memory at batch 4")
+    return out
+
+
+def train_grads(variables, dev, frames, masks, dtype=torch.float32):
+    """One training step (frozen BN, lr 1e-5) of the trained weights on
+    ``dev`` in ``dtype`` -> (loss, gradients by name in float64 on the
+    CPU)."""
+    cfg = _train_cfg(clip_n=frames.shape[1], max_obj_n=masks.shape[2],
+                     output_size=frames.shape[2])
+    model = training_form(variables, dev, dtype)
+    step = make_video_train_step(model, init_video_train_state(model, cfg),
+                                 cfg)
+    loss = step(torch.from_numpy(frames).to(dev, dtype),
+                torch.from_numpy(masks).to(dev, dtype)).item()
+    return loss, {n: p.grad.double().cpu()
+                  for n, p in model.named_parameters()}
+
+
+def compare_steps(got, want):
+    """How far the step ``got`` is from ``want`` (two results of
+    :func:`train_grads`): the loss and the gradients' global norm
+    relative, and the largest gap of a gradient leaf over that leaf's
+    largest magnitude (and its name)."""
+    (lg, gg), (lw, gw) = got, want
+    norm_g = torch.stack([g.norm() for g in gg.values()]).norm().item()
+    norm_w = torch.stack([g.norm() for g in gw.values()]).norm().item()
+    leaf = {n: ((gg[n] - g).abs().max() / g.abs().max()).item()
+            for n, g in gw.items() if g.abs().max() > 0}
+    worst = max(leaf, key=leaf.get)
+    return {"loss": lg, "loss_ref": lw, "loss_rel": abs(lg - lw) / abs(lw),
+            "grad_norm": norm_g, "grad_norm_ref": norm_w,
+            "grad_norm_rel": abs(norm_g - norm_w) / norm_w,
+            "leaf_rel": leaf[worst], "leaf": worst}
+
+
+def train_card_cpu_phase(variables, clips=tuple(CARD_CPU_CLIPS)):
+    """15(b): one step of the trained weights on each clip, card against
+    CPU, in float64 and in float32.
+
+    In float64 the two must agree as far as the port's code goes: losses
+    within 1e-9 relative, every gradient leaf within 1e-6 of its largest
+    magnitude (on the H100, 5.6e-14 and 9.0e-11 at worst over 8 seeded
+    clips, ``scripts/torch_train_card_cpu.py``). In float32 each device
+    strays from the float64 step by its own rounding, which the trained
+    decoder's log-odds (up to |1458|) amplify: over those 8 clips the
+    CPU's float32 loss strays up to 1.2e-5 relative and its gradients'
+    global norm up to 5.7e-4, the card's (cuDNN) up to 2.5e-5 and
+    4.2e-4, and the two float32 steps differ by up to 2.5e-5 and 2.5e-4.
+    So the float32 bounds are twice those card-against-CPU readings:
+    losses within 5e-5 relative, the gradients' global norms within 5e-4.
+    A float32 gradient leaf strays up to 13 % of its scale from float64
+    on either device, so leaves are held only in float64. Parameter
+    changes are not compared: a first AdamW step moves each parameter by
+    lr times the sign of its gradient, so two steps differ by 2 lr
+    wherever a sign does, however close their gradients. The CPU's
+    float32 step is also compared with its float64 one, and the card's
+    with the CPU's float64, for the record."""
+    out = {}
+    for name in clips:
+        frames, masks = CARD_CPU_CLIPS[name]()
+        card32, cpu32, card64, cpu64 = (
+            train_grads(variables, dev, frames, masks, dtype)
+            for dev, dtype in ((DEV, torch.float32),
+                               (torch.device("cpu"), torch.float32),
+                               (DEV, torch.float64),
+                               (torch.device("cpu"), torch.float64)))
+        res = out[name] = {"float32": compare_steps(card32, cpu32),
+                           "float64": compare_steps(card64, cpu64),
+                           "cpu_float32_vs_float64":
+                               compare_steps(cpu32, cpu64),
+                           "card_float32_vs_cpu_float64":
+                               compare_steps(card32, cpu64)}
+        f32, f64 = res["float32"], res["float64"]
+        own, card = (res["cpu_float32_vs_float64"],
+                     res["card_float32_vs_cpu_float64"])
+        log("train", f"card vs CPU, clip {name}, 240 px: float64 loss rel "
+            f"{f64['loss_rel']:.2e}, leaf gap {f64['leaf_rel']:.2e} of "
+            f"scale ({f64['leaf']}); float32 loss {f32['loss']:.7f} / "
+            f"{f32['loss_ref']:.7f} (rel {f32['loss_rel']:.2e}), grad norm "
+            f"{f32['grad_norm']:.6f} / {f32['grad_norm_ref']:.6f} (rel "
+            f"{f32['grad_norm_rel']:.2e}), leaf gap {f32['leaf_rel']:.2e}; "
+            f"off the CPU's float64, the CPU's float32 loss {own['loss_rel']:.2e}"
+            f" and grad norm {own['grad_norm_rel']:.2e}, the card's "
+            f"{card['loss_rel']:.2e} and {card['grad_norm_rel']:.2e}")
+        check(f64["loss_rel"] <= 1e-9,
+              f"clip {name}: float64 card and CPU losses within 1e-9")
+        check(f64["leaf_rel"] <= 1e-6, f"clip {name}: in float64 every "
+              f"gradient leaf within 1e-6 of its scale")
+        check(f32["loss_rel"] <= 5e-5,
+              f"clip {name}: float32 card and CPU losses within 5e-5")
+        check(f32["grad_norm_rel"] <= 5e-4,
+              f"clip {name}: float32 gradient norms within 5e-4")
+    return out
+
+
+class _ClipSet:
+    """Four seeded 240-px clips of 4 frames and 2 objects; sample ``idx``
+    of epoch ``e`` is a pure function of (e, idx)."""
+
+    def __len__(self):
+        return 4
+
+    def get(self, idx, epoch=0):
+        frames, masks = training_clips(1, 4, 2, 240,
+                                       SEED + 1000 * epoch + idx)
+        return frames[0], masks[0], 2
+
+
+def _epoch_losses(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [r["loss"] for r in map(json.loads, f)
+                if r["event"] == "epoch"]
+
+
+def train_loop_phase(variables):
+    """15(c): ``run_video_training`` on the card, the demo recipe (240 px,
+    clip_n 4, obj_n 2, lr 1e-4, live BN) over 4 seeded clips: 3 epochs
+    straight, and 2 epochs then a third resumed from ``final.pt``, which
+    must end equal; then ``best.npz`` through ``load_afb_urr`` segments a
+    frame on the graph engine."""
+    cfg = dict(clip_n=4, max_obj_n=2, output_size=240, update_bn=True,
+               lr=DEMO_LR, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, part = os.path.join(tmp, "whole"), os.path.join(tmp, "part")
+        t0 = time.perf_counter()
+        run_video_training(training_form(variables, DEV),
+                           VideoTrainConfig(epochs=3, **cfg), _ClipSet(),
+                           whole, log_every=4)
+        dt = time.perf_counter() - t0
+        run_video_training(training_form(variables, DEV),
+                           VideoTrainConfig(epochs=2, **cfg), _ClipSet(),
+                           part, log_every=4)
+        for name in ("final.pt", "best.pt", "best.npz", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(part, name)),
+                  f"the loop wrote {name}")
+        run_video_training(training_form(variables, DEV),
+                           VideoTrainConfig(epochs=3, **cfg), _ClipSet(),
+                           part, log_every=4,
+                           resume=os.path.join(part, "final.pt"))
+        a = torch.load(os.path.join(whole, "final.pt"), weights_only=True)
+        b = torch.load(os.path.join(part, "final.pt"), weights_only=True)
+        losses = _epoch_losses(whole)
+        check(_epoch_losses(part) == losses and a["step"] == b["step"] == 12,
+              "resumed epoch losses and step equal the straight run's")
+        check(all(torch.equal(v, b["model"][k]) for k, v in
+                  a["model"].items()), "resumed weights and statistics "
+              "equal the straight run's")
+        check(all(torch.equal(v, b["optimizer"][part_][k])
+                  for part_ in ("mu", "nu")
+                  for k, v in a["optimizer"][part_].items()),
+              "resumed optimiser state equals the straight run's")
+        model = load_afb_urr(os.path.join(whole, "best.npz"), device=DEV)
+        clip, mask0 = synthetic_clip(2, 240, 427, SEED + 17)
+        eng = VideoSegEngine(model, FeatureBank(obj_n=2, memory_budget=65_536,
+                                                device=DEV),
+                             downsample=240, postprocess="device")
+        state = eng.bootstrap(clip[0], mask0)
+        state, label = eng.step(state, clip[1], 1)
+        label = eng.fetch_label(label)
+        check(label.shape == clip[1].shape[:2] and label.max() <= 1,
+              "best.npz segments a frame on the graph engine")
+    log("train", f"loop: 3 epochs of 4 steps in {dt:.1f} s (checkpoints "
+        f"included), epoch losses {[round(x, 5) for x in losses]}; resumed "
+        f"run equal; best.npz segments ({label.mean():.3f} water)")
+    return {"epoch_losses": losses, "seconds_3_epochs": dt,
+            "resume_equal": True, "segment_water_share": float(label.mean())}
+
+
+def train_repeat_phase(variables, steps=30):
+    """15(d): 30 steps on one repeated 240-px clip (lr 1e-4, frozen BN):
+    the last loss below the first."""
+    cfg = _train_cfg(clip_n=3, max_obj_n=2, output_size=240, lr=DEMO_LR)
+    frames, masks = training_clips(1, 3, 2, 240, SEED + 18)
+    model = training_form(variables, DEV)
+    _, _, losses = _timed_train_steps(model, cfg, frames, masks, steps=steps,
+                                      warm=0)
+    log("train", f"repeated clip: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"in {steps} steps")
+    check(losses[-1] < losses[0], "the loss falls on a repeated clip")
+    return {"first": losses[0], "last": losses[-1], "steps": steps}
+
+
+def train_phase():
+    """Phase 15: AFB-URR training on the card in float32, and in float64
+    for (b)'s reference (TF32 off, cuDNN deterministic, as the trainer CLI
+    sets it): (a), (b) and (d) may launch
+    none of the port's kernels (the training read is the plain dense
+    read); (c) ends with the serving engine, which does."""
+    variables = load_flat_npz(default_checkpoint("video"))
+    for counter in (bank_read_cuda, cc_cuda, nms_cuda):
+        counter.reset_launches()
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = {"recipe": train_recipe_phase(variables),
+               "card_vs_cpu": train_card_cpu_phase(variables),
+               "repeat": train_repeat_phase(variables)}
+        launched = {**bank_read_cuda.launches, **cc_cuda.launches,
+                    **nms_cuda.launches}
+        check(not any(launched.values()),
+              f"the training steps launched none of the port's kernels: "
+              f"{launched}")
+        res["loop"] = train_loop_phase(variables)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return res
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -2730,6 +3094,8 @@ def main():
     stopsign, launches_nms = stopsign_phase()
     torch.cuda.empty_cache()
     people, launches_people = people_phase()
+    torch.cuda.empty_cache()
+    training = train_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -2744,7 +3110,8 @@ def main():
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
                       "waterlevel": waterlevel, "batch": batch,
-                      "stopsign": stopsign, "people": people}),
+                      "stopsign": stopsign, "people": people,
+                      "training": training}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,5 +68,12 @@ def test_linknet_bridge_uses_every_array_once():
 def test_load_linknet_refuses_missing_and_pth(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_linknet(str(tmp_path / "none.npz"), device="cpu")
-    with pytest.raises(ValueError, match="npz"):
+    # a .pth is the reference's smp LinkNet now
+    # (tests/test_torch_weight_routes.py); a missing one raises, and so
+    # does a file of a suffix the loader does not know
+    with pytest.raises(FileNotFoundError):
         load_linknet(str(tmp_path / "model.pth"), device="cpu")
+    other = tmp_path / "model.ckpt"
+    other.write_bytes(b"")
+    with pytest.raises(ValueError, match="npz"):
+        load_linknet(str(other), device="cpu")

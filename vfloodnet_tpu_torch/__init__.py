@@ -12,8 +12,9 @@ kernels, built with ``nvcc`` at first use. On the card the video step is
 replayed as a CUDA graph.
 
 Layout mirrors the JAX package: ``core`` (weights), ``ops``, ``models``,
-``memory`` (the feature bank) and ``pipelines`` (the video and image
-engines, the water-level pipelines and their CLIs).
+``memory`` (the feature bank), ``pipelines`` (the video and image
+engines, the water-level pipelines and their CLIs), and ``data`` and
+``train`` (the AFB-URR trainer and its CLI).
 Entry points run on ``device="cuda"`` unless the caller passes another
 device; they raise when CUDA is absent.
 """

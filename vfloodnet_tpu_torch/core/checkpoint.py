@@ -1,11 +1,13 @@
-"""Flat ``.npz`` weight files: '/'-joined Flax paths -> nested dict.
+"""Flat ``.npz`` weight files: '/'-joined Flax paths <-> nested dict.
 
-A numpy-only copy of ``load_flat_npz`` from the JAX package's checkpoint
-module, which the port may not import.
+Numpy-only copies of ``load_flat_npz`` and ``save_flat_npz`` from the JAX
+package's checkpoint module, which the port may not import: a file either
+package writes, the other reads.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -35,3 +37,14 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
             out.update(flatten(v, f"{prefix}{k}{_SEP}"))
         return out
     return {prefix[:-1]: np.asarray(tree)}
+
+
+def save_flat_npz(path: str, tree: Any) -> None:
+    """Write a nested dict of arrays (or a flat ``{'/'-joined path:
+    array}`` dict) as one uncompressed npz with '/'-joined keys, through a
+    temporary file renamed into place."""
+    flat = flatten(tree)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)

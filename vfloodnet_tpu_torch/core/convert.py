@@ -1,6 +1,8 @@
-"""Weight bridge: the JAX package's AFB-URR, LinkNet, Generalized R-CNN and
-body-mesh (``BodyMeshRegressor``, ``METRONetwork``) variables -> the
-port's ``state_dict``.
+"""Weight bridge: the JAX package's AFB-URR, LinkNet (both layouts),
+Generalized R-CNN and body-mesh (``BodyMeshRegressor``, ``METRONetwork``)
+variables -> the port's ``state_dict``, and the AFB-URR training form's
+``state_dict`` back to the JAX flat layout
+(:func:`export_afb_urr_variables`).
 
 Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
 the Flax variables themselves, as numpy), ``params/...`` and
@@ -31,6 +33,7 @@ import torch
 from .checkpoint import flatten
 
 BN_EPS = 1e-5
+KEYDIM = 128     # AFB-URR's key width: the fused key-value conv splits here
 
 
 def _oihw(kernel: np.ndarray) -> np.ndarray:
@@ -41,8 +44,14 @@ def _port_path(path: str) -> str:
     return re.sub(r"/block(\d+)", r".\1", path).replace("/", ".")
 
 
-def convert_afb_urr_variables(variables: Dict[str, Any]
+def convert_afb_urr_variables(variables: Dict[str, Any],
+                              trainable_bn: bool = False
                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's AFB-URR variables -> a ``state_dict`` for
+    ``AFBURR()``, or with ``trainable_bn`` for the training form
+    ``AFBURR(trainable_bn=True)``, whose BatchNorms keep ``scale``,
+    ``bias``, ``mean`` and ``var`` as they are (nothing is folded; the
+    inverse is :func:`export_afb_urr_variables`)."""
     flat = flatten(variables)
     used = set()
 
@@ -72,6 +81,10 @@ def convert_afb_urr_variables(variables: Dict[str, Any]
             out[port + ".weight"] = _oihw(take(key))
         elif leaf == "bias":
             out[port + ".bias"] = take(key)
+        elif leaf == "scale" and trainable_bn:
+            out[port + ".scale"] = take(key)
+            out[port + ".var"] = take(f"batch_stats/{path}/var")
+            out[port + ".mean"] = take(f"batch_stats/{path}/mean")
         elif leaf == "scale":          # FrozenBN
             var = take(f"batch_stats/{path}/var")
             scale = take(key)
@@ -88,17 +101,62 @@ def convert_afb_urr_variables(variables: Dict[str, Any]
             for k, v in out.items()}
 
 
-def convert_linknet_variables(variables: Dict[str, Any]
+def export_afb_urr_variables(state_dict: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_afb_urr_variables(..., trainable_bn=True)``:
+    the training form's ``state_dict`` (or its parameters' gradients,
+    under the same names) -> the JAX package's flat layout,
+    ``{"params/...": array, "batch_stats/...": array}`` with '/'-joined
+    Flax paths, float32 numpy. The 5-plane stem splits back into
+    ``conv1``, ``conv1_m`` and ``conv1_o``, the fused key-value conv into
+    ``key`` and ``value``; kernels go back to HWIO. Every entry is used
+    exactly once; a name the map does not know raises."""
+    def hwio(w):
+        return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+    out: Dict[str, np.ndarray] = {}
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        path, leaf = name.rsplit(".", 1)
+        flax = re.sub(r"\.(\d+)(?=\.|$)", r"/block\1", path).replace(".", "/")
+        if name == "encoder_m.backbone.conv1.weight":
+            w = hwio(arr)
+            out["params/encoder_m/backbone/conv1/kernel"] = w[:, :, :3]
+            out["params/encoder_m/conv1_m/kernel"] = w[:, :, 3:4]
+            out["params/encoder_m/conv1_o/kernel"] = w[:, :, 4:5]
+        elif path == "keyval_r4.conv":
+            w = hwio(arr) if leaf == "weight" else arr
+            kind = "kernel" if leaf == "weight" else "bias"
+            out[f"params/keyval_r4/key/{kind}"] = w[..., :KEYDIM]
+            out[f"params/keyval_r4/value/{kind}"] = w[..., KEYDIM:]
+        elif leaf == "weight" and arr.ndim == 4:
+            out[f"params/{flax}/kernel"] = hwio(arr)
+        elif leaf in ("bias", "scale"):
+            out[f"params/{flax}/{leaf}"] = arr
+        elif leaf in ("mean", "var"):
+            out[f"batch_stats/{flax}/{leaf}"] = arr
+        else:
+            raise KeyError(f"unexpected training-form entry {name}")
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def convert_linknet_variables(variables: Dict[str, Any],
+                              bn_eps: float = BN_EPS
                               ) -> Dict[str, torch.Tensor]:
     """The JAX package's TPU-first ``LinkNet`` variables (EfficientNet-B4
     encoder, flat npz of the bundled image checkpoint) -> a ``state_dict``
-    for :class:`vfloodnet_tpu_torch.models.linknet.LinkNet`.
+    for :class:`vfloodnet_tpu_torch.models.linknet.LinkNet`, and likewise
+    the ``LinkNetSMP`` variables (``bn_eps`` 1e-3, efficientnet-pytorch's)
+    for :class:`vfloodnet_tpu_torch.models.linknet_smp.LinkNetSMP`.
 
     Paths map one to one (``/`` -> ``.``; the encoder's blocks live under
     ``encoder.blocks``); conv kernels go from HWIO to OIHW (a depthwise
-    kernel [k, k, 1, C] becomes [C, 1, k, k]); FrozenBN folds ``scale`` and
-    the running ``var`` into ``weight = scale / sqrt(var + 1e-5)``. Every
-    Flax array is used exactly once; a key left over raises."""
+    kernel [k, k, 1, C] becomes [C, 1, k, k]); the smp decoder's
+    ``tconv`` kernel, stored [kh, kw, out, in] for a torch-exact
+    transposed convolution, goes back to ``ConvTranspose2d``'s [in, out,
+    kh, kw]; FrozenBN folds ``scale`` and the running ``var`` into
+    ``weight = scale / sqrt(var + bn_eps)``. Every Flax array is used
+    exactly once; a key left over raises."""
     flat = flatten(variables)
     out: Dict[str, np.ndarray] = {}
     used = set()
@@ -111,14 +169,17 @@ def convert_linknet_variables(variables: Dict[str, Any]
             port = "encoder.blocks." + port[len("encoder."):]
         arr = np.asarray(flat[key], np.float32)
         used.add(key)
-        if leaf == "kernel":
+        if leaf == "kernel" and path.endswith("tconv"):
+            out[port + ".weight"] = np.ascontiguousarray(
+                np.transpose(arr, (3, 2, 0, 1)))
+        elif leaf == "kernel":
             out[port + ".weight"] = _oihw(arr)
         elif leaf == "bias":
             out[port + ".bias"] = arr
         elif leaf == "scale":          # FrozenBN
             var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
             out[port + ".weight"] = arr * np.reciprocal(
-                np.sqrt(var + np.float32(BN_EPS)))
+                np.sqrt(var + np.float32(bn_eps)))
             out[port + ".mean"] = np.asarray(
                 flat[f"batch_stats/{path}/mean"], np.float32)
             used.update((f"batch_stats/{path}/var",

@@ -1,5 +1,5 @@
 """AFB-URR video segmentation network (counterpart of
-``vfloodnet_tpu.models.afb_urr``), inference only.
+``vfloodnet_tpu.models.afb_urr``).
 
 A ResNet-50 memory encoder over (frame, mask, inverse mask), a ResNet-50
 query encoder, a 3x3-conv key/value head (1024 -> 128 + 512), the memory
@@ -21,11 +21,23 @@ mask at ``memorize``, the bank read's ``mem`` at ``decode_with_memory``;
 the decoder's rough map is a float32 softmax cast back, the uncertainty is
 float32, and the score is taken in float32. The query keys go to the read
 as float32, and the read casts them to the bank's dtype.
+
+Training (``train/train_video.py``): ``AFBURR(trainable_bn=True)`` is the
+training form, whose BatchNorms (:class:`.resnet.TrainBN`) keep the JAX
+``scale``, ``bias``, ``mean`` and ``var`` unfolded (the weight bridge's
+``trainable_bn``), and ``segment(..., training=True)`` reads the bank with
+the plain dense read on every device, with gradients
+(:func:`..ops.attention.read_dense_batched`; the CUDA kernels are
+forward-only), and returns the uncertainty loss of the JAX training
+branch. The 2x upsamples' backward is a product with the interpolation
+matrices, and the per-object copies are expansions, so a training step on
+the card adds no two gradients with atomics and repeats bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -34,7 +46,8 @@ import torch.nn.functional as F
 
 from ..ops import (bank_attention_read, calc_uncertainty, local_avg_pool,
                    local_max_pool, pad_divide_by, unpad)
-from .resnet import Conv2d, ResNet50Backbone
+from ..ops.attention import read_dense_batched
+from .resnet import Conv2d, FrozenBN, ResNet50Backbone, TrainBN, wide
 
 KEYDIM, VALDIM = 128, 512
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -52,14 +65,65 @@ def _imagenet_stats(device: torch.device):
 def _normalize(frame: torch.Tensor) -> torch.Tensor:
     """ImageNet normalisation in float32."""
     mean, std = _imagenet_stats(frame.device)
-    return (frame.float() - mean) / std
+    return (wide(frame) - mean) / std
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear, half-pixel centres (align_corners=False), computed in
-    float32 and cast back to x's dtype."""
+    float32 and cast back to x's dtype. Where a gradient is wanted, the
+    backward is :class:`_Upsample2`'s."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample2.apply(wide(x)).to(x.dtype)
     return F.interpolate(x.float(), size=(2 * x.shape[-2], 2 * x.shape[-1]),
                          mode="bilinear", align_corners=False).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _upsample2_matrix(n: int, device: torch.device) -> torch.Tensor:
+    """[2n, n] float32: row i holds the weights of output i in the half-
+    pixel 2x linear upsample, edges clamped (output 0 is input 0, output
+    2n - 1 input n - 1)."""
+    a = torch.zeros(2 * n, n, dtype=torch.float64)
+    for i in range(2 * n):
+        src = max((i + 0.5) / 2 - 0.5, 0.0)
+        i0 = min(int(src), n - 1)
+        i1 = min(i0 + 1, n - 1)
+        lam = src - i0
+        a[i, i0] += 1.0 - lam
+        a[i, i1] += lam
+    return a.to(torch.float32).to(device)
+
+
+class _Upsample2(torch.autograd.Function):
+    """``F.interpolate``'s 2x bilinear forward, and its adjoint as two
+    products with the interpolation matrices: ``grad_x = A_h^T g A_w``.
+    The upsample's own CUDA backward adds into the input gradient with
+    atomics, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = x.shape[-2:]
+        return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                             mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.hw
+        a_h = _upsample2_matrix(h, g.device).to(g.dtype)
+        a_w = _upsample2_matrix(w, g.device).to(g.dtype)
+        return a_h.T @ g @ a_w
+
+
+def _per_object(x: torch.Tensor, obj_n: int) -> torch.Tensor:
+    """[bs, ...] -> [bs * obj_n, ...], each row repeated obj_n times
+    (``jnp.repeat``). Where a gradient is wanted, as an expansion, whose
+    backward sums the copies in one reduction (``repeat_interleave``'s
+    adds them with atomics); else ``repeat_interleave``, the serving
+    path's copy, which replays faster in float32 on the card."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return x[:, None].expand((x.shape[0], obj_n) + x.shape[1:]).reshape(
+            (x.shape[0] * obj_n,) + x.shape[1:])
+    return x.repeat_interleave(obj_n, dim=0)
 
 
 def _conv3(cin: int, cout: int, dtype: torch.dtype) -> Conv2d:
@@ -100,10 +164,11 @@ class EncoderM(nn.Module):
     """Memory encoder over frame + mask + inverse mask (AFB_URR.py:33-63):
     one 5-plane stem, the reference's conv1(f) + conv1_m(m) + conv1_o(o)."""
 
-    def __init__(self, dtype: torch.dtype):
+    def __init__(self, dtype: torch.dtype, norm=FrozenBN):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNet50Backbone(in_channels=5, dtype=dtype)
+        self.backbone = ResNet50Backbone(in_channels=5, dtype=dtype,
+                                         norm=norm)
 
     def forward(self, frame, mask, mask_inv):
         """frame [n, 3, H, W] in [0, 1]; mask, mask_inv [n, 1, H, W]."""
@@ -116,10 +181,11 @@ class EncoderM(nn.Module):
 class EncoderQ(nn.Module):
     """Query encoder (AFB_URR.py:66-93)."""
 
-    def __init__(self, dtype: torch.dtype):
+    def __init__(self, dtype: torch.dtype, norm=FrozenBN):
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNet50Backbone(in_channels=3, dtype=dtype)
+        self.backbone = ResNet50Backbone(in_channels=3, dtype=dtype,
+                                         norm=norm)
 
     def forward(self, frame):
         return self.backbone(_normalize(frame).to(self.dtype))
@@ -161,20 +227,17 @@ class Decoder(nn.Module):
         """patch_match [bs*obj_n, 1024, h16, w16]; skips r3, r2, r1 per
         batch [bs, C, h, w]. Returns per-object foreground log-odds
         [bs, obj_n, H, W]."""
-        def per_obj(x):
-            return x.repeat_interleave(obj_n, dim=0)
-
         p = self.ResMM(self.convFM(patch_match))
-        p = self.RF3.refine(per_obj(self.RF3.skip(r3)), p)           # 1/8
-        p = self.RF2.refine(per_obj(self.RF2.skip(r2)), p)           # 1/4
-        r1 = per_obj(r1)
+        p = self.RF3.refine(_per_object(self.RF3.skip(r3), obj_n), p)  # 1/8
+        p = self.RF2.refine(_per_object(self.RF2.skip(r2), obj_n), p)  # 1/4
+        r1 = _per_object(r1, obj_n)
         p = _upsample2(self.pred2(F.relu(p)))                        # 1/2
 
         n, _, h, w = p.shape
-        rough = torch.softmax(p.float(), dim=1)[:, 1].reshape(bs, obj_n, h, w)
+        rough = torch.softmax(wide(p), dim=1)[:, 1].reshape(bs, obj_n, h, w)
         rough = torch.softmax(rough, dim=1)          # object-level norm
         unc = calc_uncertainty(rough, obj_axis=1)    # [bs, 1, h, w] float32
-        unc = unc.repeat_interleave(obj_n, dim=0)
+        unc = _per_object(unc, obj_n)
         rough = rough.reshape(n, 1, h, w).to(self.dtype)
 
         r1_local = local_avg_pool(r1 * rough, self.local_size)
@@ -185,22 +248,25 @@ class Decoder(nn.Module):
 
         p = _upsample2(p + unc.to(self.dtype) * q)                   # 1/1
         # per-object log-odds: logit1 - logit0 of the 2-class softmax
-        p = p.float()
+        p = wide(p)
         score = p[:, 1] - p[:, 0]
         return score.reshape(bs, obj_n, 2 * h, 2 * w)
 
 
 class AFBURR(nn.Module):
     """The full AFB-URR graph (see :meth:`memorize` and :meth:`segment`),
-    computing in ``dtype`` (float32 or bfloat16)."""
+    computing in ``dtype`` (float32 or bfloat16). ``trainable_bn`` builds
+    the training form (:class:`.resnet.TrainBN` in both encoders)."""
 
     def __init__(self, thres_valid: float = 1e-3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 trainable_bn: bool = False):
         super().__init__()
         self.thres_valid = thres_valid
         self.dtype = dtype
-        self.encoder_m = EncoderM(dtype)
-        self.encoder_q = EncoderQ(dtype)
+        norm = TrainBN if trainable_bn else FrozenBN
+        self.encoder_m = EncoderM(dtype, norm)
+        self.encoder_q = EncoderQ(dtype, norm)
         self.keyval_r4 = KeyValue(dtype)
         self.decoder = Decoder(dtype)
 
@@ -231,9 +297,13 @@ class AFBURR(nn.Module):
         return k4, v4, (r3, r2, r1), tuple(r4.shape[-2:]), pad
 
     def decode_with_memory(self, mem: torch.Tensor, v4: torch.Tensor, skips,
-                           hw16, pad) -> torch.Tensor:
+                           hw16, pad, training: bool = False):
         """mem [B, obj_n, P, dv] from the bank read -> score log-odds
-        [B, obj_n, H, W] at the unpadded frame size."""
+        [B, obj_n, H, W] at the unpadded frame size; with ``training``,
+        (score, uncertainty loss): the mean over the batch of
+        ``sqrt(sum(unc^2) + 1e-12) / sqrt(H W)`` of the URR uncertainty of
+        the objects' softmax on the padded map (the JAX training branch;
+        the 1e-12 keeps the gradient finite at a fully confident map)."""
         r3, r2, r1 = skips
         h16, w16 = hw16
         bs, obj_n = mem.shape[:2]
@@ -241,15 +311,33 @@ class AFBURR(nn.Module):
         feat = torch.cat([mem.to(self.dtype), q_val], dim=-1)
         feat = feat.reshape(bs * obj_n, h16, w16, 2 * VALDIM)
         score = self.decoder(feat.permute(0, 3, 1, 2), r3, r2, r1, bs, obj_n)
-        return unpad(score, pad, spatial_axes=(-2, -1))
+        if not training:
+            return unpad(score, pad, spatial_axes=(-2, -1))
+        unc = calc_uncertainty(torch.softmax(score, dim=1), obj_axis=1)
+        hw = score.shape[-2] * score.shape[-1]
+        unc = torch.sqrt(unc.reshape(bs, -1).square().sum(dim=1) + 1e-12) \
+            / math.sqrt(hw)
+        return unpad(score, pad, spatial_axes=(-2, -1)), unc.mean()
 
     def segment(self, frames: torch.Tensor, bank_keys: torch.Tensor,
                 bank_values: torch.Tensor, bank_valid: torch.Tensor,
-                bank_occ: Optional[torch.Tensor] = None):
+                bank_occ: Optional[torch.Tensor] = None,
+                training: bool = False):
         """frames [B, H, W, 3]; bank [obj_n, N, d], bank_valid [obj_n, N];
         ``bank_occ`` [obj_n] int32 bounds the read at the occupancy ->
-        (score log-odds [B, obj_n, H, W], usage counts [obj_n, N])."""
+        (score log-odds [B, obj_n, H, W], usage counts [obj_n, N]).
+
+        ``training``: the read is the plain dense read with gradients on
+        every device, and the result is (score, uncertainty loss, usage
+        counts), as the JAX ``segment(..., training=True)``."""
         k4, v4, skips, hw16, pad = self.encode_query(frames)
+        if training:
+            mem, usage = read_dense_batched(bank_keys, bank_values,
+                                            bank_valid, wide(k4),
+                                            self.thres_valid)
+            score, unc = self.decode_with_memory(mem, v4, skips, hw16, pad,
+                                                 training=True)
+            return score, unc, usage
         occ_bound = None if bank_occ is None else bank_occ.max()
         mems, usage = [], None
         for b in range(k4.shape[0]):

@@ -61,18 +61,27 @@ class SqueezeExcite(nn.Module):
         return x * torch.sigmoid(s.float()).to(x.dtype)
 
 
+# efficientnet-pytorch bakes its "same" padding at the model's nominal
+# image size (380 for B4) and applies those static (lo, hi) pads to every
+# input; the smp encoder's stride-2 convs (the stem and each stage's first
+# block) therefore pad so (the JAX package's ``_SMP_B4_S2_PADS``)
+SMP_B4_S2_PADS = {"stem": (0, 1), 1: (0, 1), 2: (2, 2), 3: (0, 1),
+                  5: (1, 2)}
+
+
 class MBConv(nn.Module):
     def __init__(self, in_f: int, expand: int, kernel: int, stride: int,
-                 out_f: int, se_from: int, dtype: torch.dtype):
+                 out_f: int, se_from: int, dtype: torch.dtype, pad=None):
         super().__init__()
         mid = in_f * expand
         self.expand = expand
+        self.pad = pad
         if expand != 1:
             self.expand_conv = Conv2d(in_f, mid, 1, bias=False, dtype=dtype)
             self.expand_bn = FrozenBN(mid, dtype)
         self.dw_conv = Conv2d(mid, mid, kernel, stride=stride,
-                              padding=kernel // 2, groups=mid, bias=False,
-                              dtype=dtype)
+                              padding=kernel // 2 if pad is None else 0,
+                              groups=mid, bias=False, dtype=dtype)
         self.dw_bn = FrozenBN(mid, dtype)
         self.se = SqueezeExcite(mid, max(1, se_from // 4), dtype)
         self.project_conv = Conv2d(mid, out_f, 1, bias=False, dtype=dtype)
@@ -83,6 +92,8 @@ class MBConv(nn.Module):
         h = x
         if self.expand != 1:
             h = F.silu(self.expand_bn(self.expand_conv(h)))
+        if self.pad is not None:
+            h = F.pad(h, self.pad * 2)
         h = F.silu(self.dw_bn(self.dw_conv(h)))
         h = self.project_bn(self.project_conv(self.se(h)))
         return h + x if self.residual else h
@@ -90,14 +101,19 @@ class MBConv(nn.Module):
 
 class EfficientNetFeatures(nn.Module):
     """The pyramid /2, /4, /8, /16, /32 of an EfficientNet (B4 by
-    default)."""
+    default). ``smp`` gives smp's encoder (``LinkNetSMP``'s): the stride-2
+    convs padded as efficientnet-pytorch pads them (:data:`SMP_B4_S2_PADS`)
+    and the /2 level taken from the stem."""
 
     def __init__(self, width: float = 1.4, depth: float = 1.8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, smp: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.smp = smp
         stem_f = round_filters(32, width)
-        self.stem_conv = Conv2d(3, stem_f, 3, stride=2, padding=1,
+        self.stem_pad = SMP_B4_S2_PADS["stem"] if smp else None
+        self.stem_conv = Conv2d(3, stem_f, 3, stride=2,
+                                padding=0 if smp else 1,
                                 bias=False, dtype=dtype)
         self.stem_bn = FrozenBN(stem_f, dtype)
         self.blocks = nn.ModuleDict()
@@ -110,20 +126,27 @@ class EfficientNetFeatures(nn.Module):
             for bi in range(round_repeats(r, depth)):
                 stride = s if bi == 0 else 1
                 name = f"stage{si}_block{bi}"
+                pad = SMP_B4_S2_PADS[si] if smp and stride == 2 \
+                    else None
                 self.blocks[name] = MBConv(
                     in_f, e, k, stride, out_sf,
-                    in_sf if bi == 0 else out_sf, dtype)
+                    in_sf if bi == 0 else out_sf, dtype, pad)
                 self.taps[name] = stride == 2
                 in_f = out_sf
 
     def features_nchw(self, x: torch.Tensor):
         """x [N, 3, H, W] -> the five levels, NCHW."""
-        h = F.silu(self.stem_bn(self.stem_conv(x.to(self.dtype))))
-        pyramid = []
+        x = x.to(self.dtype)
+        if self.stem_pad is not None:
+            x = F.pad(x, self.stem_pad * 2)
+        h = F.silu(self.stem_bn(self.stem_conv(x)))
+        stem, pyramid = h, []
         for name, block in self.blocks.items():
             if self.taps[name]:
                 pyramid.append(h)
             h = block(h)
+        if self.smp:
+            pyramid[0] = stem
         return tuple(pyramid + [h])
 
     def forward(self, x: torch.Tensor):

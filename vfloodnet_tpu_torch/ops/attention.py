@@ -16,6 +16,8 @@ count are the hand-written kernels of ``csrc/bank_read.cu`` (float32) and
 tensors the plain versions below run; they repeat the JAX package's three
 variants (dense, chunked and occupancy-bounded), and the tests hold each
 against its JAX counterpart.
+The trainer reads with :func:`read_dense_batched`, the dense read with
+gradients, on every device: the kernels are forward-only.
 The plain versions of the kernels are ``_read_occ_sweep`` (read),
 ``_read_occ_segments`` (the read's per-segment partials),
 ``combine_partials`` (combine) and ``_count_occ_sweep`` (count). A CUDA
@@ -80,6 +82,27 @@ def _read_dense(keys, values, valid, q, thres):
     mem = _weighted_sum(e * (1.0 / l), values)
     cnt = ((e > thres * l) & valid[None, :]).sum(dim=0).to(torch.float32)
     return mem, cnt
+
+
+def read_dense_batched(keys, values, valid, q, thres):
+    """The dense read of :func:`_read_dense` for B query frames against
+    every object's bank at once, differentiable, in float32 on any device
+    (the training read: the JAX package's ``_xla_read_dense``, which its
+    trainer takes at training sizes; float64 operands stay float64).
+    keys [obj, N, dk], values [obj, N, dv], valid [obj, N] bool, q [B, P,
+    dk] -> (mem [B, obj, P, dv], cnt [obj, N], summed over the B frames,
+    without gradient)."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(keys.shape[-1])
+    s = torch.einsum("bpd,ond->bopn", q.to(dt), keys.to(dt)) * scale
+    s = torch.where(valid[None, :, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.max(dim=-1, keepdim=True).values
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    mem = (e * (1.0 / l)) @ values.to(dt)[None]
+    with torch.no_grad():
+        cnt = ((e > thres * l) & valid[None, :, None, :]).sum(dim=(0, 2))
+    return mem, cnt.to(torch.float32)
 
 
 def _read_chunked(keys, values, valid, q, thres, chunk):

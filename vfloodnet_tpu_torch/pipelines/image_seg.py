@@ -16,7 +16,11 @@ forms, as in the JAX package:
 
 :func:`run_image_segmentation` reads files with PIL (resized to 416 there
 with PIL's bilinear, as the reference's ``tf.Resize`` on a PIL image) and
-writes indexed-PNG masks; overlays are not ported yet.
+writes indexed-PNG masks and their overlays, in a pool of ``workers``
+writer threads if asked (none by default); it computes in float32 or, with
+``dtype=torch.bfloat16``, on a bf16 copy of the model
+(:func:`.loaders.cast_floating_params`), as the JAX runner casts its
+variables.
 
 Run as ``python -m vfloodnet_tpu_torch.pipelines.image_seg --test-path
 IMAGES --test-name NAME`` (the flags of ``test_image_seg.py``).
@@ -109,52 +113,77 @@ def read_image(path: str) -> Tuple[np.ndarray, np.ndarray]:
 def run_image_segmentation(test_path: str, test_name: str,
                            out_path: str = "./output/segs",
                            model_path: Optional[str] = None,
-                           model: Optional[LinkNet] = None,
+                           model: Optional[torch.nn.Module] = None,
                            batch_size: int = 4, postprocess: bool = True,
-                           tail: str = "auto", device="cuda") -> List[str]:
+                           tail: str = "auto", device="cuda",
+                           dtype: torch.dtype = torch.float32,
+                           workers: int = 0) -> List[Tuple[str, str]]:
     """Segment one image file or a directory of images; masks go to
-    ``<out_path>/<test_name>/mask/<name>.png``. ``tail``: 'device'
-    (:func:`device_tail`, for a batch of one image size), 'host'
-    (:func:`host_tail`) or 'auto' (the rule of
-    :func:`.video_seg.resolve_postprocess`). Returns the mask paths."""
-    from ..utils import save_seg_mask
+    ``<out_path>/<test_name>/mask/<name>.png`` and overlays to
+    ``.../overlay/<name>.png``. ``tail``: 'device' (:func:`device_tail`,
+    for a batch of one image size), 'host' (:func:`host_tail`) or 'auto'
+    (the rule of :func:`.video_seg.resolve_postprocess`). ``model``
+    (default: :func:`.loaders.load_linknet` of ``model_path`` computing in
+    ``dtype``) runs on a copy with its conv kernels cast to its dtype when
+    that is not float32. ``workers`` > 0 writes the files in a pool of
+    that many threads (:mod:`.pools`). Returns (mask path, overlay path)
+    a file, in order."""
+    from ..utils import save_overlay, save_seg_mask
+    from .loaders import cast_floating_params, load_linknet
+    from .pools import make_pool
 
     device = resolve_device(device)
     if model is None:
-        from .loaders import load_linknet
-        model = load_linknet(model_path, device=device)
+        model = load_linknet(model_path, device=device, dtype=dtype)
+    elif model.dtype != dtype:
+        raise ValueError(f"the model computes in {model.dtype}, not {dtype}")
+    if model.dtype != torch.float32:
+        model = cast_floating_params(model, model.dtype)
     if tail == "auto":
         tail = resolve_postprocess("auto", device)
     if tail not in ("device", "host"):
         raise ValueError(f"unknown tail {tail!r}")
     mask_out = os.path.join(out_path, test_name, "mask")
+    overlay_out = os.path.join(out_path, test_name, "overlay")
     os.makedirs(mask_out, exist_ok=True)
+    os.makedirs(overlay_out, exist_ok=True)
     if os.path.isfile(test_path):
         paths = [test_path]
     else:
         paths = sorted(glob(os.path.join(test_path, "*.jpg"))
                        + glob(os.path.join(test_path, "*.png")))
+
+    def write(path, img, label):
+        base = os.path.splitext(os.path.basename(path))[0]
+        mask_path = os.path.join(mask_out, base + ".png")
+        overlay_path = os.path.join(overlay_out, base + ".png")
+        save_seg_mask(label, mask_path)
+        save_overlay(img, label, overlay_path)
+        return mask_path, overlay_path
+
+    writer = make_pool(workers)
+    futures = []
     b = max(1, min(batch_size, len(paths)))
-    results = []
-    for start in range(0, len(paths), b):
-        chunk = paths[start:start + b]
-        imgs, inputs = zip(*(read_image(p) for p in chunk))
-        inputs = list(inputs) + [inputs[-1]] * (b - len(chunk))  # pad
-        batch = torch.from_numpy(np.stack(inputs)).to(device)
-        if tail == "device" and len({im.shape for im in imgs}) == 1:
-            packed = device_tail(model, batch, imgs[0].shape[:2],
-                                 postprocess).cpu().numpy()
-            labels = unpack_bits(packed, imgs[0].shape[1])
-        else:
-            with torch.no_grad():
-                probs = model(batch)[..., 0].cpu().numpy()
-            labels = [host_tail(probs[j], im.shape[:2], postprocess)
-                      for j, im in enumerate(imgs)]
-        for j, path in enumerate(chunk):
-            base = os.path.splitext(os.path.basename(path))[0]
-            mask_path = os.path.join(mask_out, base + ".png")
-            save_seg_mask(labels[j], mask_path)
-            results.append(mask_path)
+    try:
+        for start in range(0, len(paths), b):
+            chunk = paths[start:start + b]
+            imgs, inputs = zip(*(read_image(p) for p in chunk))
+            inputs = list(inputs) + [inputs[-1]] * (b - len(chunk))  # pad
+            batch = torch.from_numpy(np.stack(inputs)).to(device)
+            if tail == "device" and len({im.shape for im in imgs}) == 1:
+                packed = device_tail(model, batch, imgs[0].shape[:2],
+                                     postprocess).cpu().numpy()
+                labels = unpack_bits(packed, imgs[0].shape[1])
+            else:
+                with torch.no_grad():
+                    probs = model(batch)[..., 0].float().cpu().numpy()
+                labels = [host_tail(probs[j], im.shape[:2], postprocess)
+                          for j, im in enumerate(imgs)]
+            futures += [writer.submit(write, path, imgs[j], labels[j])
+                        for j, path in enumerate(chunk)]
+        results = [f.result() for f in futures]
+    finally:
+        writer.shutdown()
     print(f"Segmented {len(paths)} image(s) -> {mask_out}")
     return results
 
@@ -176,6 +205,8 @@ def _args():
                         help="Images per device batch")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' or 'cpu'.")
+    parser.add_argument("--workers", type=int, default=0,
+                        help="Writer threads (0: write on the main thread)")
     return parser.parse_args()
 
 
@@ -186,7 +217,8 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32 = False
     run_image_segmentation(args.test_path, args.test_name, args.out_path,
                            model_path=args.model_path,
-                           batch_size=args.batch_size, device=args.device)
+                           batch_size=args.batch_size, device=args.device,
+                           workers=args.workers)
 
 
 if __name__ == "__main__":

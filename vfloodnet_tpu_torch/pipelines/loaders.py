@@ -11,7 +11,9 @@ import torch
 
 from ..core import (convert_afb_urr_variables, convert_linknet_variables,
                     load_flat_npz, resolve_device)
+from ..core.convert_ref import read_afb_urr_pth, read_smp_linknet_pth
 from ..models import AFBURR, LinkNet
+from ..models.linknet_smp import LinkNetSMP
 
 _RECORDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "records", "checkpoints")
@@ -25,36 +27,52 @@ def default_checkpoint(kind: str = "video") -> str:
 def load_afb_urr(model_path: Optional[str] = None, device="cuda",
                  dtype: torch.dtype = torch.float32) -> AFBURR:
     """AFB-URR computing in ``dtype`` with weights from a flat ``.npz``
-    checkpoint of the JAX package (default: the bundled trained one),
-    converted by the weight bridge and moved to ``device``, in eval mode.
-    The weights stay float32 masters; the engine casts them once
+    checkpoint of the JAX package (default: the bundled trained one) or the
+    reference's PyTorch ``.pth`` / ``.bin`` (through its key map,
+    :mod:`..core.convert_ref`), converted by the weight bridge and moved to
+    ``device``, in eval mode. A missing file or another suffix raises. The
+    weights stay float32 masters; the engine casts them once
     (:func:`cast_floating_params`)."""
     model_path = model_path or default_checkpoint("video")
-    if not model_path.endswith(".npz"):
-        raise ValueError(f"expected a flat .npz checkpoint, got {model_path}")
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"no video checkpoint at {model_path}")
+    if model_path.endswith(".npz"):
+        variables = load_flat_npz(model_path)
+    elif model_path.endswith((".pth", ".bin")):
+        variables = read_afb_urr_pth(model_path)
+    else:
+        raise ValueError(f"expected a flat .npz or a reference .pth/.bin "
+                         f"checkpoint, got {model_path}")
     device = resolve_device(device)
     model = AFBURR(dtype=dtype)
-    model.load_state_dict(convert_afb_urr_variables(load_flat_npz(model_path)))
+    model.load_state_dict(convert_afb_urr_variables(variables))
     return model.to(device).eval()
 
 
-def load_linknet(model_path: Optional[str] = None,
-                 device="cuda") -> LinkNet:
-    """The image model, the JAX package's TPU-first ``LinkNet``
-    (EfficientNet-B4), with weights from a flat ``.npz`` checkpoint
-    (default: the bundled trained one), on ``device``, in eval mode. A
-    missing file raises. The reference's pickled smp ``.pth`` (the JAX
-    package's ``LinkNetSMP`` route) is not ported."""
+def load_linknet(model_path: Optional[str] = None, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+    """The image model computing in ``dtype`` on ``device``, in eval mode:
+    the JAX package's TPU-first ``LinkNet`` (EfficientNet-B4) from a flat
+    ``.npz`` checkpoint (default: the bundled trained one), or, from a
+    ``.pth``, the reference's smp ``Linknet(efficientnet-b4)`` (a
+    whole-model pickle or a ``state_dict``) as :class:`LinkNetSMP`, as the
+    JAX loader returns. The weights stay float32 masters
+    (:func:`cast_floating_params` casts a copy). A missing file raises."""
     model_path = model_path or default_checkpoint("image")
-    if not model_path.endswith(".npz"):
-        raise ValueError(f"expected a flat .npz checkpoint, got "
-                         f"{model_path} (the smp .pth route is not ported)")
     if not os.path.exists(model_path):
         raise FileNotFoundError(f"no image checkpoint at {model_path}")
     device = resolve_device(device)
-    model = LinkNet()
-    model.load_state_dict(convert_linknet_variables(load_flat_npz(
-        model_path)))
+    if model_path.endswith(".pth"):
+        model = LinkNetSMP(dtype=dtype)
+        model.load_state_dict(convert_linknet_variables(
+            read_smp_linknet_pth(model_path), bn_eps=LinkNetSMP.BN_EPS))
+    elif model_path.endswith(".npz"):
+        model = LinkNet(dtype=dtype)
+        model.load_state_dict(convert_linknet_variables(load_flat_npz(
+            model_path)))
+    else:
+        raise ValueError(f"expected a flat .npz or an smp .pth "
+                         f"checkpoint, got {model_path}")
     return model.to(device).eval()
 
 
