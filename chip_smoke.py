@@ -176,6 +176,32 @@ Phases, each printing one line with its elapsed seconds:
    with equal losses, weights, statistics and optimiser state; then
    ``load_afb_urr`` of its ``best.npz`` segments a frame on the graph
    engine.
+16. the image, detection and body-mesh trainers (``train/``; float32,
+   TF32 off, seeded in-memory data: no PIL, no cv2; cuDNN deterministic
+   for the image trainer, as its CLI runs, and for every card-against-CPU
+   step):
+   (a) LinkNet (EfficientNet-B4) from the bundled trained weights at the
+   CLI's recipe (416 x 416, batch 8, lr 1e-4), frozen and live BN: ms a
+   step (median of 5 after 2), peak memory, finite dice and IoU; one step
+   at 128 px, batch 2, card against CPU (:func:`trainer_card_cpu`: in
+   float64 losses within 1e-9 relative and every gradient leaf within
+   1e-6 of its scale; in float32 within :data:`TRAINER_F32_BOUNDS`); and
+   ``run_image_training`` (128 px, batch 2, live BN, a validation set)
+   for 3 epochs straight against 2 and a third resumed from
+   ``final.pt``, which must end equal, then ``best.npz`` through the
+   serving ``load_linknet``; (c) the ``BodyMeshRegressor`` (ResNet-50,
+   46.8 M, live BN, one 224-px crop a step) from seeded weights: ms a step
+   and peak memory over 150 steps of the trainer's samples, whose best
+   25-step mean must fall below the first 25's, and one step card against
+   CPU; (b) the tiny stop-sign and people detectors at 320 px from seeded
+   weights on the cv2-free scenes, 150 steps each (ms a step, peak
+   memory; the last 25 steps' mean loss below the first 25's), the
+   full-width Keypoint R-CNN R-101 (1 class, keypoints) step at 320 px
+   timed, one step of the tiny people detector card against CPU at 96 px;
+   no training step launches any of the port's kernels; then the trained
+   tiny stop-sign weights through ``export_rcnn_variables`` and the
+   serving ``load_default_detector`` detect on a rendered scene, which
+   launches the NMS kernel.
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
@@ -183,7 +209,8 @@ each kernel's launches in phase 11 as ``launches_waterlevel`` and in
 phase 12(b) and (c) as ``launches_batch`` and
 ``launches_batch_float32``, its phase-12(a) numbers as ``batch4``, the
 batch phases' under ``batch``, phase 13's under ``stopsign``, phase 14's
-under ``people``, phase 15's under ``training``; the NMS kernel's row
+under ``people``, phase 15's under ``training``, phase 16's under
+``trainers``; the NMS kernel's row
 counts its launches an image, the people detector's under ``people``)
 and, last,
 ``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
@@ -254,6 +281,18 @@ from vfloodnet_tpu_torch.train import (VideoTrainConfig,
                                        init_video_train_state,
                                        make_video_train_step,
                                        run_video_training)
+from vfloodnet_tpu_torch.core.checkpoint import save_flat_npz
+from vfloodnet_tpu_torch.core.convert import (convert_linknet_variables,
+                                              export_rcnn_variables)
+from vfloodnet_tpu_torch.data import (SyntheticPeopleDataset,
+                                      SyntheticStopsignDataset,
+                                      render_stopsign_scene)
+from vfloodnet_tpu_torch.models import LinkNet, TrainBN
+from vfloodnet_tpu_torch.models.detection.meta import load_default_detector
+from vfloodnet_tpu_torch.train import train_bodymesh as tbm
+from vfloodnet_tpu_torch.train import train_detection as tdet
+from vfloodnet_tpu_torch.train import train_image as timg
+from vfloodnet_tpu_torch.train.loops import run_image_training
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -2751,29 +2790,39 @@ def _train_cfg(**kw):
     return VideoTrainConfig(**{"lr": TRAIN_LR, **kw})
 
 
+def timed_steps(step, inputs, warm=2, last=None):
+    """Run ``step(*x)`` for each ``x`` of ``inputs`` (an iterable of tuples
+    of tensors on the card, made outside the timed span): (median ms of
+    the steps after the first ``warm`` and up to ``last``, CUDA events
+    around each step; peak memory allocated over all of them, bytes,
+    counting what earlier phases left allocated; every step's output)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = [], []
+    for x in inputs:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step(*x)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        outs.append(out)
+    return (float(np.median(times[warm:last])),
+            int(torch.cuda.max_memory_allocated()), outs)
+
+
 def _timed_train_steps(model, cfg, frames, masks, steps=7, warm=2):
     """(median ms a step over ``steps - warm`` steps after ``warm``, CUDA
     events; peak memory allocated over all of them, bytes, counting what
     earlier phases left allocated; every step's loss)."""
     opt = init_video_train_state(model, cfg)
     step = make_video_train_step(model, opt, cfg)
-    f = torch.from_numpy(frames).to(DEV)
-    m = torch.from_numpy(masks).to(DEV)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    for _ in range(steps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        loss = step(f, m)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-        losses.append(loss.item())
+    x = (torch.from_numpy(frames).to(DEV), torch.from_numpy(masks).to(DEV))
+    ms, peak, outs = timed_steps(step, [x] * steps, warm)
+    losses = [loss.item() for loss in outs]
     check(all(np.isfinite(losses)), f"finite training losses {losses}")
-    return (float(np.median(times[warm:])),
-            int(torch.cuda.max_memory_allocated()), losses)
+    return ms, peak, losses
 
 
 def train_recipe_phase(variables):
@@ -2825,15 +2874,19 @@ def train_grads(variables, dev, frames, masks, dtype=torch.float32):
                   for n, p in model.named_parameters()}
 
 
-def compare_steps(got, want):
+def compare_steps(got, want, floor=0.0):
     """How far the step ``got`` is from ``want`` (two results of
     :func:`train_grads`): the loss and the gradients' global norm
     relative, and the largest gap of a gradient leaf over that leaf's
-    largest magnitude (and its name)."""
+    largest magnitude (and its name). ``floor`` > 0 floors a leaf's scale
+    at that share of the largest leaf: a leaf whose gradient vanishes (a
+    bias feeding a live BatchNorm) is rounding noise on either device."""
     (lg, gg), (lw, gw) = got, want
     norm_g = torch.stack([g.norm() for g in gg.values()]).norm().item()
     norm_w = torch.stack([g.norm() for g in gw.values()]).norm().item()
-    leaf = {n: ((gg[n] - g).abs().max() / g.abs().max()).item()
+    top = max(g.abs().max().item() for g in gw.values())
+    leaf = {n: ((gg[n] - g).abs().max()
+                / max(g.abs().max().item(), floor * top)).item()
             for n, g in gw.items() if g.abs().max() > 0}
     worst = max(leaf, key=leaf.get)
     return {"loss": lg, "loss_ref": lw, "loss_rel": abs(lg - lw) / abs(lw),
@@ -3014,6 +3067,418 @@ def train_phase():
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the image, detection and body-mesh trainers
+# --------------------------------------------------------------------------
+
+# The float32 card-against-CPU bounds of one step of each trainer, (loss
+# relative, gradients' global norm relative): twice the largest gaps that
+# scripts/torch_trainers_card_cpu.py read over 8 seeds on the H100
+# (PERF.md: image 5.24e-7 and 2.77e-6, detection 2.32e-7
+# and 3.61e-5, body mesh 2.40e-5 and 3.44e-4).
+TRAINER_F32_BOUNDS = {"image": (1.1e-6, 5.6e-6),
+                      "detection": (4.7e-7, 7.3e-5),
+                      "bodymesh": (4.8e-5, 6.9e-4)}
+NOISE_FLOOR = 1e-9       # of the largest leaf: a vanishing leaf's scale
+
+
+def image_batch(n, size, seed):
+    """``n`` seeded stills as the image trainer takes them: images [n, S,
+    S, 3] float32 in [0, 1], a sky over water below a wavy waterline with
+    a ripple and noise, and their water masks [n, S, S]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32) / size
+    images = np.zeros((n, size, size, 3), np.float32)
+    masks = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        sky, sea = rng.uniform(0.5, 0.9, 3), rng.uniform(0.1, 0.4, 3)
+        phase, level = rng.uniform(0, 6), rng.uniform(0.4, 0.65)
+        water = yy + 0.05 * np.sin(9 * xx + phase) > level
+        img = np.where(water[..., None], sea, sky) + 0.08 * np.sin(
+            40 * xx + 13 * yy)[..., None] * water[..., None]
+        images[i] = np.clip(img + 0.03 * rng.standard_normal(img.shape),
+                            0, 1)
+        masks[i] = water
+    return images, masks
+
+
+def image_training_form(variables, dev, dtype=torch.float32):
+    """The LinkNet training form with ``variables`` in ``dtype``."""
+    model = LinkNet(dtype=dtype, norm=TrainBN)
+    model.load_state_dict(convert_linknet_variables(variables,
+                                                    trainable_bn=True))
+    return model.to(dev, dtype)
+
+
+def _grads(model):
+    return {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+
+
+def image_grads(variables, dev, dtype, images, masks):
+    """One image-trainer step (frozen BN, lr 1e-4) of ``variables`` on
+    ``dev`` in ``dtype`` -> (loss, gradients by name)."""
+    model = image_training_form(variables, dev, dtype)
+    cfg = timg.ImageTrainConfig()
+    step = timg.make_image_train_step(
+        model, timg.init_image_train_state(model, cfg))
+    loss, _ = step(torch.from_numpy(images).to(dev, dtype),
+                   torch.from_numpy(masks).to(dev, dtype))
+    return loss.item(), _grads(model)
+
+
+DET_CARD_CPU = dict(image_size=96, keypoint_rois=4)
+
+
+def detection_grads(dev, dtype, seed):
+    """One detection-trainer step of the seeded tiny people detector (masks
+    and keypoints) at 96 px on people scene ``seed`` on ``dev`` in
+    ``dtype`` -> (loss, gradients by name); the random proposals are the
+    trainer's own (drawn on the CPU)."""
+    tc = tdet.DetectionTrainConfig(**DET_CARD_CPU)
+    model = seeded_init(GeneralizedRCNN(tdet.tiny_people_config(96),
+                                        trainable_bn=True), SEED)
+    model = model.to(dev, dtype)
+    step = tdet.make_detection_train_step(
+        model, tdet.init_detection_train_state(model, tc), tc)
+    sample = SyntheticPeopleDataset(n=seed + 1, size=96).get(seed)
+    x = [a.to(dtype) if a.is_floating_point() else a
+         for a in tdet.to_device(sample, dev)]
+    loss, _ = step(*x)
+    return loss.item(), _grads(model)
+
+
+def bodymesh_grads(dev, dtype, seed):
+    """One body-mesh step (live BN, one crop) of the seeded regressor on
+    the training sample ``(13, seed)`` on ``dev`` in ``dtype`` -> (loss,
+    gradients by name)."""
+    ref = tbm.init_body_mesh(1, "cpu")
+    model = BodyMeshRegressor(trainable_bn=True, dtype=dtype)
+    model.load_state_dict(ref.state_dict())
+    model = model.to(dev, dtype)
+    step = tbm.make_bodymesh_train_step(
+        model, tbm.init_bodymesh_train_state(model, tbm.BodyMeshTrainConfig()))
+    crop, target = tbm.make_training_sample(
+        np.random.default_rng(np.random.SeedSequence([13, seed])),
+        load_template_3d(None))
+    loss = step(torch.from_numpy(crop).to(dev, dtype),
+                torch.from_numpy(target).to(dev, dtype))
+    return loss.item(), _grads(model)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block, as the image
+    trainer's CLI runs (its resume is exact) and as the float32 bounds
+    were read."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def trainer_card_cpu(name, grads_fn):
+    """One step of a trainer on the card (cuDNN deterministic) and on the
+    CPU, in float64 (the losses within 1e-9 relative, every gradient leaf
+    within 1e-6 of its scale) and in float32 (within
+    :data:`TRAINER_F32_BOUNDS`, the gaps printed)."""
+    with cudnn_deterministic():
+        card32, cpu32, card64, cpu64 = (
+            grads_fn(dev, dtype) for dev, dtype in (
+                (DEV, torch.float32), (torch.device("cpu"), torch.float32),
+                (DEV, torch.float64), (torch.device("cpu"), torch.float64)))
+    f64 = compare_steps(card64, cpu64, NOISE_FLOOR)
+    f32 = compare_steps(card32, cpu32, NOISE_FLOOR)
+    bound_loss, bound_norm = TRAINER_F32_BOUNDS[name]
+    log("trainers", f"{name} card vs CPU: float64 loss rel "
+        f"{f64['loss_rel']:.2e}, leaf gap {f64['leaf_rel']:.2e} of scale "
+        f"({f64['leaf']}); float32 loss {f32['loss']:.7f} / "
+        f"{f32['loss_ref']:.7f} (rel {f32['loss_rel']:.2e}, bound "
+        f"{bound_loss:.0e}), grad norm rel {f32['grad_norm_rel']:.2e} "
+        f"(bound {bound_norm:.0e}), leaf gap {f32['leaf_rel']:.2e}")
+    check(f64["loss_rel"] <= 1e-9, f"{name}: float64 losses within 1e-9")
+    check(f64["leaf_rel"] <= 1e-6,
+          f"{name}: in float64 every gradient leaf within 1e-6 of its scale")
+    check(f32["loss_rel"] <= bound_loss,
+          f"{name}: float32 losses within {bound_loss}")
+    check(f32["grad_norm_rel"] <= bound_norm,
+          f"{name}: float32 gradient norms within {bound_norm}")
+    return {"float64": f64, "float32": f32,
+            "float32_bounds": TRAINER_F32_BOUNDS[name]}
+
+
+class _ImageSet:
+    """Four seeded 128-px stills; sample ``idx`` of epoch ``e`` is a pure
+    function of (e, idx). Asking for a sample of epoch ``stop`` raises
+    :class:`_Stopped`: a run killed after its earlier epochs."""
+
+    def __init__(self, seed, stop=None):
+        self.seed, self.stop = seed, stop
+
+    def __len__(self):
+        return 4
+
+    def get(self, idx, epoch=0):
+        if epoch == self.stop:
+            raise _Stopped
+        images, masks = image_batch(1, 128, self.seed + 1000 * epoch + idx)
+        return images[0], masks[0]
+
+
+class _Stopped(Exception):
+    pass
+
+
+def image_loop_phase(variables):
+    """16(a): ``run_image_training`` (128 px, batch 2, live BN, a
+    validation set) for 3 epochs straight, and stopped after 2 then
+    resumed from ``final.pt``: the two must end equal. ``best.npz`` then
+    segments through the serving ``load_linknet``."""
+    cfg = timg.ImageTrainConfig(epochs=3, batch_size=2, input_size=128,
+                                update_bn=True, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, part = os.path.join(tmp, "whole"), os.path.join(tmp, "part")
+        val = _ImageSet(SEED + 500)
+        t0 = time.perf_counter()
+        run_image_training(image_training_form(variables, DEV), cfg,
+                           _ImageSet(SEED), whole, val_dataset=val)
+        dt = time.perf_counter() - t0
+        try:
+            run_image_training(image_training_form(variables, DEV), cfg,
+                               _ImageSet(SEED, stop=2), part,
+                               val_dataset=val)
+            check(False, "the stopped run stopped")
+        except _Stopped:
+            pass
+        run_image_training(image_training_form(variables, DEV), cfg,
+                           _ImageSet(SEED), part, val_dataset=val,
+                           resume=os.path.join(part, "final.pt"))
+        a = torch.load(os.path.join(whole, "final.pt"), weights_only=True)
+        b = torch.load(os.path.join(part, "final.pt"), weights_only=True)
+
+        metrics = [_image_epochs(d) for d in (whole, part)]
+        check(metrics[0] == metrics[1] and a["step"] == b["step"] == 6,
+              "resumed epoch metrics and step equal the straight run's")
+        check(all(torch.equal(v, b["model"][k])
+                  for k, v in a["model"].items()),
+              "resumed image weights and statistics equal the straight run's")
+        check(all(torch.equal(v, b["optimizer"][m][k]) for m in ("mu", "nu")
+                  for k, v in a["optimizer"][m].items()),
+              "resumed image optimiser state equals the straight run's")
+        model = load_linknet(os.path.join(whole, "best.npz"), device=DEV)
+        images, _ = image_batch(1, 128, SEED + 21)
+        with torch.no_grad():
+            prob = model(torch.from_numpy(images).to(DEV))
+        check(prob.shape == (1, 128, 128, 1) and bool(
+            torch.isfinite(prob).all()), "best.npz segments an image")
+    log("trainers", f"image loop: 3 epochs of 2 steps in {dt:.1f} s "
+        f"(validation and checkpoints included), epoch (dice, iou, val "
+        f"iou) {metrics[0]}; the resumed run equal; best.npz segments")
+    return {"epoch_metrics": metrics[0], "seconds_3_epochs": dt,
+            "resume_equal": True}
+
+
+def _image_epochs(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [[round(r[k], 6) for k in ("dice", "iou", "select_iou")]
+                for r in map(json.loads, f)]
+
+
+def image_trainer_phase():
+    """16(a): the image trainer from the bundled trained LinkNet: the CLI's
+    recipe (416 x 416, batch 8, lr 1e-4) timed with frozen and with live
+    BN, one step card against CPU (128 px, batch 2), and the loop."""
+    variables = load_flat_npz(default_checkpoint("image"))
+    out = {}
+    for name, update_bn in (("frozen_bn", False), ("update_bn", True)):
+        cfg = timg.ImageTrainConfig(update_bn=update_bn)
+        images, masks = image_batch(cfg.batch_size, cfg.input_size,
+                                    SEED + 20)
+        x = (torch.from_numpy(images).to(DEV),
+             torch.from_numpy(masks).to(DEV))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = image_training_form(variables, DEV)
+        step = timg.make_image_train_step(
+            model, timg.init_image_train_state(model, cfg), update_bn)
+        ms, peak, outs = timed_steps(step, [x] * 7)
+        dice = [o[0].item() for o in outs]
+        iou = [o[1].item() for o in outs]
+        check(all(np.isfinite(dice)) and all(0 <= v <= 1 for v in iou),
+              f"image {name}: finite dice and IoU in [0, 1]")
+        out[name] = {"ms_step": ms, "peak_gb": (peak - base) / 1e9,
+                     "dice": dice, "iou": iou}
+        log("trainers", f"image {name}, 416 px, batch 8: {ms:.2f} ms a step "
+            f"(median of 5 after 2), peak {(peak - base) / 1e9:.3f} GB, dice "
+            f"{dice[0]:.5f} -> {dice[-1]:.5f}, IoU {iou[0]:.4f} -> "
+            f"{iou[-1]:.4f}")
+        del model, step
+        torch.cuda.empty_cache()
+    images, masks = image_batch(2, 128, SEED + 22)
+    out["card_vs_cpu"] = trainer_card_cpu(
+        "image", lambda dev, dt: image_grads(variables, dev, dt, images,
+                                             masks))
+    out["loop"] = image_loop_phase(variables)
+    return out
+
+
+def detection_run(people, steps=150):
+    """16(b): the tiny detector (seeded weights, 320 px, the trainer's
+    defaults) for ``steps`` steps on the cv2-free scenes, one a step:
+    (median ms of steps 2..6, CUDA events around the step only; peak
+    memory; losses; the model)."""
+    tc = tdet.DetectionTrainConfig()
+    mc = (tdet.tiny_people_config if people else
+          tdet.tiny_stopsign_config)(tc.image_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = seeded_init(GeneralizedRCNN(mc, trainable_bn=True),
+                        SEED).to(DEV)
+    step = tdet.make_detection_train_step(
+        model, tdet.init_detection_train_state(model, tc), tc)
+    ds = (SyntheticPeopleDataset if people else SyntheticStopsignDataset)(
+        n=steps, size=tc.image_size, seed=tc.seed)
+    ms, peak, outs = timed_steps(
+        step, (tdet.to_device(ds.get(i), DEV) for i in range(steps)),
+        last=7)
+    return ms, peak - base, [o[0].item() for o in outs], model
+
+
+def detection_trainer_phase():
+    """16(b): both tiny detectors trained 150 steps (the mean loss of the
+    last 25 below the first 25's), the full-width Keypoint R-CNN R-101
+    step timed, one step card against CPU at 96 px, and the trained stop-
+    sign weights through ``export_rcnn_variables`` and the serving
+    ``load_default_detector`` on a rendered scene (the NMS kernel)."""
+    out = {}
+    for name, people in (("stopsign", False), ("people", True)):
+        ms, peak, losses, model = detection_run(people)
+        first, last = np.mean(losses[:25]), np.mean(losses[-25:])
+        check(all(np.isfinite(losses)), f"{name}: finite losses")
+        check(last < first, f"{name}: the mean loss of the last 25 steps "
+              f"({last:.4f}) below the first 25's ({first:.4f})")
+        out[name] = {"ms_step": ms, "peak_gb": peak / 1e9, "steps": 150,
+                     "loss_first25": float(first),
+                     "loss_last25": float(last)}
+        log("trainers", f"detector {name}, tiny, 320 px: {ms:.2f} ms a step "
+            f"(median of 5 after 2), peak {peak / 1e9:.3f} GB, mean loss "
+            f"{first:.4f} (steps 0-24) -> {last:.4f} (steps 125-149)")
+        if not people:
+            trained = model
+        del model
+        torch.cuda.empty_cache()
+    # full width: Keypoint R-CNN R-101 (1 class, keypoints, no masks)
+    tc = tdet.DetectionTrainConfig()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = seeded_init(GeneralizedRCNN(keypoint_rcnn_config(),
+                                        trainable_bn=True), SEED).to(DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = tdet.make_detection_train_step(
+        model, tdet.init_detection_train_state(model, tc), tc)
+    ds = SyntheticPeopleDataset(n=7, size=tc.image_size, seed=tc.seed)
+    ms, peak, outs = timed_steps(
+        step, [tdet.to_device(ds.get(i), DEV) for i in range(7)])
+    losses = [o[0].item() for o in outs]
+    check(all(np.isfinite(losses)), "Keypoint R-CNN: finite losses")
+    out["keypoint_rcnn_r101"] = {"ms_step": ms,
+                                 "peak_gb": (peak - base) / 1e9,
+                                 "params": n_params, "losses": losses}
+    log("trainers", f"Keypoint R-CNN R-101 ({n_params / 1e6:.1f} M), 320 px: "
+        f"{ms:.2f} ms a step (median of 5 after 2), peak "
+        f"{(peak - base) / 1e9:.3f} GB, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    del model, step
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = trainer_card_cpu(
+        "detection", lambda dev, dt: detection_grads(dev, dt, 0))
+    launched = {**bank_read_cuda.launches, **cc_cuda.launches,
+                **nms_cuda.launches}
+    check(not any(launched.values()), f"the training steps launched none of "
+          f"the port's kernels: {launched}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "best.npz")
+        save_flat_npz(path, export_rcnn_variables(trained.state_dict()))
+        with open(os.path.join(tmp, "rcnn_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(trained.cfg), f)
+        detector = load_default_detector("stopsign", model_path=path,
+                                         device=DEV)
+        sc = render_stopsign_scene(np.random.default_rng(SEED + 23), 320,
+                                   water_level=0.25)
+        inst = detector(sc["image"].astype(np.uint8))
+    n_nms = nms_cuda.launches["nms"]
+    check(n_nms >= 1, "the served detector launched the NMS kernel")
+    out["served"] = {"detections": int(len(inst.boxes)),
+                     "nms_launches": n_nms,
+                     "best_score": float(inst.scores.max())
+                     if len(inst.scores) else None}
+    log("trainers", f"trained tiny stop-sign detector served: "
+        f"{len(inst.boxes)} detections, NMS kernel launched {n_nms} times")
+    return out
+
+
+def bodymesh_trainer_phase(steps=150):
+    """16(c): the ``BodyMeshRegressor`` (ResNet-50, live BN, one 224-px
+    crop a step) from seeded weights for ``steps`` steps (the best 25-step
+    mean from step 100 below the first 25's), and one step card against
+    CPU."""
+    cfg = tbm.BodyMeshTrainConfig(total_steps=steps)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = tbm.init_body_mesh(cfg.seed + 1, DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = tbm.make_bodymesh_train_step(
+        model, tbm.init_bodymesh_train_state(model, cfg))
+    template = load_template_3d(None)
+
+    def samples():
+        for i in range(steps):
+            crop, target = tbm.make_training_sample(
+                np.random.default_rng(np.random.SeedSequence(
+                    [cfg.seed + 13, i])), template)
+            yield (torch.from_numpy(crop).to(DEV),
+                   torch.from_numpy(target).to(DEV))
+    ms, peak, outs = timed_steps(step, samples(), last=7)
+    peak -= base
+    losses = [loss.item() for loss in outs]
+    first = float(np.mean(losses[:25]))
+    # the trainer's best: 25-step running means read every 25 steps from
+    # step 100
+    best = min(float(np.mean(losses[i - 24:i + 1]))
+               for i in range(100, steps, 25))
+    check(all(np.isfinite(losses)), "body mesh: finite losses")
+    check(best < first, f"body mesh: the best 25-step mean ({best:.5f}) "
+          f"below the first 25's ({first:.5f})")
+    log("trainers", f"body mesh ({n_params / 1e6:.1f} M), 224 px: {ms:.2f} ms "
+        f"a step (median of 5 after 2), peak {peak / 1e9:.3f} GB, mean loss "
+        f"{first:.5f} (steps 0-24), best 25-step mean {best:.5f}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"ms_step": ms, "peak_gb": peak / 1e9, "params": n_params,
+            "steps": steps, "loss_first25": first, "best_mean25": best,
+            "card_vs_cpu": trainer_card_cpu(
+                "bodymesh", lambda dev, dt: bodymesh_grads(dev, dt, 0))}
+
+
+def trainers_phase():
+    """Phase 16: the image, detection and body-mesh trainers on the card
+    in float32 (float64 for the card-against-CPU references), TF32 off,
+    each as its CLI runs it: the image trainer with cuDNN deterministic,
+    the others without; the training steps launch none of the port's
+    kernels, the served detector the NMS kernel."""
+    t0 = time.perf_counter()
+    for counter in (bank_read_cuda, cc_cuda, nms_cuda):
+        counter.reset_launches()
+    with cudnn_deterministic():
+        res = {"image": image_trainer_phase()}
+    res["bodymesh"] = bodymesh_trainer_phase()
+    res["detection"] = detection_trainer_phase()
+    res["seconds"] = time.perf_counter() - t0
+    log("trainers", f"phase 16 took {res['seconds']:.1f} s")
+    return res
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -3096,6 +3561,8 @@ def main():
     people, launches_people = people_phase()
     torch.cuda.empty_cache()
     training = train_phase()
+    torch.cuda.empty_cache()
+    trainers = trainers_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -3111,7 +3578,7 @@ def main():
     print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
                       "waterlevel": waterlevel, "batch": batch,
                       "stopsign": stopsign, "people": people,
-                      "training": training}),
+                      "training": training, "trainers": trainers}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,6 @@ fixture), carried into the port by the weight bridge:
   leaf (see ``tests/test_torch_train_step.py``).
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,8 +29,8 @@ from vfloodnet_tpu_torch.core.checkpoint import flatten
 from vfloodnet_tpu_torch.core.convert import export_afb_urr_variables
 from vfloodnet_tpu_torch.models import AFBURR
 
-from torch_train_common import (jax_loss_and_grads, make_clips,
-                                   port_loss_and_grads, port_model)
+from torch_train_common import (jax_float64, jax_loss_and_grads,
+                                make_clips, port_loss_and_grads, port_model)
 
 torch.set_num_threads(4)
 
@@ -44,19 +42,6 @@ def init():
         k, jnp.zeros((32, 32, 3)), jnp.zeros((2, 32, 32)),
         method=jm.init_all))(jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, variables)
-
-
-@contextlib.contextmanager
-def jax_float64():
-    """x64 on, and ``jnp.float32`` naming float64, inside the block."""
-    saved = jnp.float32
-    jax.config.update("jax_enable_x64", True)
-    jnp.float32 = jnp.float64
-    try:
-        yield
-    finally:
-        jnp.float32 = saved
-        jax.config.update("jax_enable_x64", False)
 
 
 def test_training_form_evaluates_as_serving_and_round_trips(init):

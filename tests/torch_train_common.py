@@ -2,6 +2,8 @@
 form from Flax variables, and one loss-and-gradient evaluation in each
 package, both returned in the JAX package's flat layout."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,21 @@ from vfloodnet_tpu_torch.models import AFBURR
 from vfloodnet_tpu_torch.train import train_video as tv
 
 HW, CLIP_N, OBJ_N, B = 32, 3, 2, 2
+
+
+@contextlib.contextmanager
+def jax_float64():
+    """x64 on, and ``jnp.float32`` naming float64, inside the block: the
+    JAX modules cast to ``jnp.float32`` by name, so their float64 run
+    stays float64."""
+    saved = jnp.float32
+    jax.config.update("jax_enable_x64", True)
+    jnp.float32 = jnp.float64
+    try:
+        yield
+    finally:
+        jnp.float32 = saved
+        jax.config.update("jax_enable_x64", False)
 
 
 def make_clips(hw=HW, seed=0, b=B, clip_n=CLIP_N, obj_n=OBJ_N):

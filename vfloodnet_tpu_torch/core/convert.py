@@ -1,8 +1,11 @@
 """Weight bridge: the JAX package's AFB-URR, LinkNet (both layouts),
 Generalized R-CNN and body-mesh (``BodyMeshRegressor``, ``METRONetwork``)
-variables -> the port's ``state_dict``, and the AFB-URR training form's
-``state_dict`` back to the JAX flat layout
-(:func:`export_afb_urr_variables`).
+variables -> the port's ``state_dict``, and the training forms'
+``state_dict`` back to the JAX flat layout (``export_*_variables``).
+
+With ``trainable_bn`` a converter fills a training form instead, whose
+BatchNorms (``models/resnet.py::TrainBN``) keep ``scale``, ``bias``,
+``mean`` and ``var`` as they are; its ``export_*`` is the exact inverse.
 
 Input: the nested dict that :func:`.checkpoint.load_flat_npz` returns (or
 the Flax variables themselves, as numpy), ``params/...`` and
@@ -25,7 +28,7 @@ Every Flax array is used exactly once; a key left over raises.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -42,6 +45,62 @@ def _oihw(kernel: np.ndarray) -> np.ndarray:
 
 def _port_path(path: str) -> str:
     return re.sub(r"/block(\d+)", r".\1", path).replace("/", ".")
+
+
+def _bn(flat: Dict[str, Any], path: str, port: str, scale: np.ndarray,
+        trainable_bn: bool, eps: float = BN_EPS) -> Dict[str, np.ndarray]:
+    """A FrozenBN's leaves under the port prefix ``port`` (ending in
+    '.', or empty): folded, ``weight = scale / sqrt(var + eps)`` and
+    ``mean``, or with ``trainable_bn`` ``scale``, ``mean`` and ``var``."""
+    mean = np.asarray(flat[f"batch_stats/{path}/mean"], np.float32)
+    var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
+    if trainable_bn:
+        return {port + "scale": scale, port + "mean": mean,
+                port + "var": var}
+    return {port + "weight": scale * np.reciprocal(
+        np.sqrt(var + np.float32(eps))), port + "mean": mean}
+
+
+def _hwio(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _flax_path(path: str) -> str:
+    """A port module path -> its Flax path: a Sequential's ``N`` is the
+    Flax ``blockN``."""
+    return re.sub(r"\.(\d+)(?=\.|$)", r"/block\1", path).replace(".", "/")
+
+
+def _export(state_dict: Dict[str, torch.Tensor],
+            flax_path: Callable[[str], str] = _flax_path,
+            kernel: Optional[Callable[[str, np.ndarray], np.ndarray]] = None,
+            bias: Optional[Callable[[str, np.ndarray], np.ndarray]] = None
+            ) -> Dict[str, np.ndarray]:
+    """A training form's ``state_dict`` (or its gradients, under the same
+    names) -> the JAX flat layout, float32 numpy: a ``weight`` of two or
+    more axes is a kernel (4-d HWIO, 2-d transposed, or ``kernel(path,
+    w)``), one of one axis a LayerNorm's ``scale``; ``mean`` and ``var``
+    go to ``batch_stats``; ``bias`` (or ``bias(path, b)``), ``scale`` and
+    other leaves to ``params`` as they are."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in state_dict.items():
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        path, _, leaf = name.rpartition(".")
+        pre = flax_path(path) + "/" if path else ""
+        if leaf == "weight" and arr.ndim >= 2:
+            w = kernel(path, arr) if kernel else None
+            if w is None:
+                w = _hwio(arr) if arr.ndim == 4 else arr.T
+            out[f"params/{pre}kernel"] = w
+        elif leaf == "weight":
+            out[f"params/{pre}scale"] = arr
+        elif leaf in ("mean", "var"):
+            out[f"batch_stats/{pre}{leaf}"] = arr
+        elif leaf == "bias" and bias is not None:
+            out[f"params/{pre}bias"] = bias(path, arr)
+        else:
+            out[f"params/{pre}{leaf}"] = arr
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
 def convert_afb_urr_variables(variables: Dict[str, Any],
@@ -81,16 +140,10 @@ def convert_afb_urr_variables(variables: Dict[str, Any],
             out[port + ".weight"] = _oihw(take(key))
         elif leaf == "bias":
             out[port + ".bias"] = take(key)
-        elif leaf == "scale" and trainable_bn:
-            out[port + ".scale"] = take(key)
-            out[port + ".var"] = take(f"batch_stats/{path}/var")
-            out[port + ".mean"] = take(f"batch_stats/{path}/mean")
         elif leaf == "scale":          # FrozenBN
-            var = take(f"batch_stats/{path}/var")
-            scale = take(key)
-            out[port + ".weight"] = scale * np.reciprocal(
-                np.sqrt(var + np.float32(BN_EPS)))
-            out[port + ".mean"] = take(f"batch_stats/{path}/mean")
+            out.update(_bn(flat, path, port + ".", take(key), trainable_bn))
+            used.update((f"batch_stats/{path}/var",
+                         f"batch_stats/{path}/mean"))
         else:
             raise KeyError(f"unexpected Flax array {key}")
 
@@ -110,38 +163,30 @@ def export_afb_urr_variables(state_dict: Dict[str, torch.Tensor]
     Flax paths, float32 numpy. The 5-plane stem splits back into
     ``conv1``, ``conv1_m`` and ``conv1_o``, the fused key-value conv into
     ``key`` and ``value``; kernels go back to HWIO. Every entry is used
-    exactly once; a name the map does not know raises."""
-    def hwio(w):
-        return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
-
+    exactly once."""
+    state = dict(state_dict)
     out: Dict[str, np.ndarray] = {}
-    for name, t in state_dict.items():
-        arr = t.detach().cpu().numpy().astype(np.float32)
-        path, leaf = name.rsplit(".", 1)
-        flax = re.sub(r"\.(\d+)(?=\.|$)", r"/block\1", path).replace(".", "/")
-        if name == "encoder_m.backbone.conv1.weight":
-            w = hwio(arr)
-            out["params/encoder_m/backbone/conv1/kernel"] = w[:, :, :3]
-            out["params/encoder_m/conv1_m/kernel"] = w[:, :, 3:4]
-            out["params/encoder_m/conv1_o/kernel"] = w[:, :, 4:5]
-        elif path == "keyval_r4.conv":
-            w = hwio(arr) if leaf == "weight" else arr
-            kind = "kernel" if leaf == "weight" else "bias"
-            out[f"params/keyval_r4/key/{kind}"] = w[..., :KEYDIM]
-            out[f"params/keyval_r4/value/{kind}"] = w[..., KEYDIM:]
-        elif leaf == "weight" and arr.ndim == 4:
-            out[f"params/{flax}/kernel"] = hwio(arr)
-        elif leaf in ("bias", "scale"):
-            out[f"params/{flax}/{leaf}"] = arr
-        elif leaf in ("mean", "var"):
-            out[f"batch_stats/{flax}/{leaf}"] = arr
-        else:
-            raise KeyError(f"unexpected training-form entry {name}")
-    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+    stem = state.pop("encoder_m.backbone.conv1.weight", None)
+    if stem is not None:
+        w = _hwio(stem.detach().cpu().numpy().astype(np.float32))
+        out["params/encoder_m/backbone/conv1/kernel"] = w[:, :, :3]
+        out["params/encoder_m/conv1_m/kernel"] = w[:, :, 3:4]
+        out["params/encoder_m/conv1_o/kernel"] = w[:, :, 4:5]
+    for leaf, kind in (("weight", "kernel"), ("bias", "bias")):
+        t = state.pop(f"keyval_r4.conv.{leaf}", None)
+        if t is None:
+            continue
+        t = t.detach().cpu().numpy()
+        t = _hwio(t) if leaf == "weight" else t
+        out[f"params/keyval_r4/key/{kind}"] = t[..., :KEYDIM]
+        out[f"params/keyval_r4/value/{kind}"] = t[..., KEYDIM:]
+    out.update(_export(state))
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
 
 
 def convert_linknet_variables(variables: Dict[str, Any],
-                              bn_eps: float = BN_EPS
+                              bn_eps: float = BN_EPS,
+                              trainable_bn: bool = False
                               ) -> Dict[str, torch.Tensor]:
     """The JAX package's TPU-first ``LinkNet`` variables (EfficientNet-B4
     encoder, flat npz of the bundled image checkpoint) -> a ``state_dict``
@@ -155,8 +200,10 @@ def convert_linknet_variables(variables: Dict[str, Any],
     ``tconv`` kernel, stored [kh, kw, out, in] for a torch-exact
     transposed convolution, goes back to ``ConvTranspose2d``'s [in, out,
     kh, kw]; FrozenBN folds ``scale`` and the running ``var`` into
-    ``weight = scale / sqrt(var + bn_eps)``. Every Flax array is used
-    exactly once; a key left over raises."""
+    ``weight = scale / sqrt(var + bn_eps)`` (kept unfolded for the
+    training form with ``trainable_bn``; the inverse is
+    :func:`export_linknet_variables`). Every Flax array is used exactly
+    once; a key left over raises."""
     flat = flatten(variables)
     out: Dict[str, np.ndarray] = {}
     used = set()
@@ -177,11 +224,8 @@ def convert_linknet_variables(variables: Dict[str, Any],
         elif leaf == "bias":
             out[port + ".bias"] = arr
         elif leaf == "scale":          # FrozenBN
-            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
-            out[port + ".weight"] = arr * np.reciprocal(
-                np.sqrt(var + np.float32(bn_eps)))
-            out[port + ".mean"] = np.asarray(
-                flat[f"batch_stats/{path}/mean"], np.float32)
+            out.update(_bn(flat, path, port + ".", arr, trainable_bn,
+                           bn_eps))
             used.update((f"batch_stats/{path}/var",
                          f"batch_stats/{path}/mean"))
         else:
@@ -193,7 +237,19 @@ def convert_linknet_variables(variables: Dict[str, Any],
             for k, v in out.items()}
 
 
-def convert_rcnn_variables(variables: Dict[str, Any]
+def export_linknet_variables(state_dict: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_linknet_variables(..., trainable_bn=True)``
+    for the TPU-first ``LinkNet``: the training form's ``state_dict`` (or
+    its gradients) -> the JAX flat layout (the encoder's
+    ``encoder.blocks.stageS_blockB`` is the Flax ``encoder/stageS_blockB``;
+    a depthwise kernel [C, 1, k, k] goes back to [k, k, 1, C])."""
+    return _export(state_dict, lambda p: p.replace(
+        "encoder.blocks.", "encoder.").replace(".", "/"))
+
+
+def convert_rcnn_variables(variables: Dict[str, Any],
+                           trainable_bn: bool = False
                            ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``GeneralizedRCNN`` variables (a flat npz, or the
     Flax tree as numpy) -> a ``state_dict`` for
@@ -206,8 +262,10 @@ def convert_rcnn_variables(variables: Dict[str, Any]
     ``ConvTranspose2d``'s [in, out, kh, kw], flipped spatially: the Flax
     layer (kernel not transposed) writes input (i, j) times tap
     (1 - a, 1 - b) to output (2i + a, 2j + b). FrozenBN folds ``scale`` and
-    the running ``var`` into ``weight = scale / sqrt(var + 1e-5)``. Every
-    Flax array is used exactly once; a key left over raises."""
+    the running ``var`` into ``weight = scale / sqrt(var + 1e-5)`` (kept
+    unfolded for the training form with ``trainable_bn``; the inverse is
+    :func:`export_rcnn_variables`). Every Flax array is used exactly once;
+    a key left over raises."""
     flat = flatten(variables)
     out: Dict[str, np.ndarray] = {}
     used = set()
@@ -228,11 +286,7 @@ def convert_rcnn_variables(variables: Dict[str, Any]
         elif leaf == "bias":
             out[port + ".bias"] = arr
         elif leaf == "scale":          # FrozenBN
-            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
-            out[port + ".weight"] = arr * np.reciprocal(
-                np.sqrt(var + np.float32(BN_EPS)))
-            out[port + ".mean"] = np.asarray(
-                flat[f"batch_stats/{path}/mean"], np.float32)
+            out.update(_bn(flat, path, port + ".", arr, trainable_bn))
             used.update((f"batch_stats/{path}/var",
                          f"batch_stats/{path}/mean"))
         else:
@@ -244,6 +298,19 @@ def convert_rcnn_variables(variables: Dict[str, Any]
             for k, v in out.items()}
 
 
+def export_rcnn_variables(state_dict: Dict[str, torch.Tensor]
+                          ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_rcnn_variables(..., trainable_bn=True)``:
+    the training form's ``state_dict`` (or its gradients) -> the JAX flat
+    layout; a transposed convolution's kernel is flipped back and
+    returned to [kh, kw, in, out]."""
+    def kernel(path, w):
+        if path.endswith("deconv"):
+            return np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1))
+        return None
+    return _export(state_dict, lambda p: p.replace(".", "/"), kernel)
+
+
 def _mesh_port_path(path: str) -> str:
     """A Flax path of the body-mesh models -> the port's module path: a
     ResNet layer's ``blockN`` is its Sequential's ``N``; the encoder
@@ -251,7 +318,8 @@ def _mesh_port_path(path: str) -> str:
     return re.sub(r"(layer\d)/block(\d+)", r"\1.\2", path).replace("/", ".")
 
 
-def convert_metro_variables(variables: Dict[str, Any]
+def convert_metro_variables(variables: Dict[str, Any],
+                            trainable_bn: bool = False
                             ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``METRONetwork``, ``HRNet`` or ``BodyMeshRegressor``
     variables
@@ -266,8 +334,10 @@ def convert_metro_variables(variables: Dict[str, Any]
     head_dim] flat; its output kernel [heads, head_dim, out] becomes [out,
     heads x head_dim]. A ``scale`` with running statistics is a FrozenBN
     (``weight = scale / sqrt(var + 1e-5)``), one without a LayerNorm's
-    weight. Embeddings and ``smpl`` buffers are kept as they are. Every
-    Flax array is used exactly once; a key left over raises."""
+    weight. Embeddings and ``smpl`` buffers are kept as they are. With
+    ``trainable_bn`` the FrozenBNs stay unfolded, for the training form
+    (the inverse is :func:`export_metro_variables`). Every Flax array is
+    used exactly once; a key left over raises."""
     flat = flatten(variables)
     out: Dict[str, np.ndarray] = {}
     used = set()
@@ -296,11 +366,7 @@ def convert_metro_variables(variables: Dict[str, Any]
         elif leaf == "bias":
             out[port + "bias"] = arr.reshape(-1)
         elif leaf == "scale" and f"batch_stats/{path}/var" in flat:
-            var = np.asarray(flat[f"batch_stats/{path}/var"], np.float32)
-            out[port + "weight"] = arr * np.reciprocal(
-                np.sqrt(var + np.float32(BN_EPS)))
-            out[port + "mean"] = np.asarray(
-                flat[f"batch_stats/{path}/mean"], np.float32)
+            out.update(_bn(flat, path, port, arr, trainable_bn))
             used.update((f"batch_stats/{path}/var",
                          f"batch_stats/{path}/mean"))
         elif leaf == "scale":          # LayerNorm
@@ -313,3 +379,25 @@ def convert_metro_variables(variables: Dict[str, Any]
     return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in out.items()}
 
+
+
+def export_metro_variables(state_dict: Dict[str, torch.Tensor],
+                           heads: int = 4) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_metro_variables(..., trainable_bn=True)``
+    for the training form of ``BodyMeshRegressor``: its ``state_dict`` (or
+    its gradients) -> the JAX flat layout. The attention's query, key and
+    value kernels [heads x head_dim, in] go back to [in, heads, head_dim],
+    their biases to [heads, head_dim], the output kernel to [heads,
+    head_dim, out] (``heads`` 4, the regressor's)."""
+    qkv = ("attn.query", "attn.key", "attn.value")
+
+    def kernel(path, w):
+        if path.endswith(qkv):
+            return w.T.reshape(w.shape[1], heads, -1)
+        if path.endswith("attn.out"):
+            return w.T.reshape(heads, -1, w.shape[0])
+        return None
+
+    def bias(path, b):
+        return b.reshape(heads, -1) if path.endswith(qkv) else b
+    return _export(state_dict, kernel=kernel, bias=bias)

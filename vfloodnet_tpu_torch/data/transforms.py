@@ -1,10 +1,12 @@
-"""Paired image and mask augmentations for the video trainer (counterpart
-of ``vfloodnet_tpu.data.transforms``, whose numpy and PIL arithmetic this
-repeats call for call, so a clip is bit for bit the JAX package's).
+"""Paired image and mask augmentations for the video and image trainers
+(counterpart of ``vfloodnet_tpu.data.transforms``, whose numpy and PIL
+arithmetic this repeats call for call, so a sample is bit for bit the JAX
+package's).
 
 Flip, colour jitter, affine and resized crop applied alike to an image
-(bicubic) and its mask (nearest), and the one-hot encoding with shuffled
-object ids (the reference's video transforms and ``Water_DS.py``). Every
+(bicubic) and its mask (nearest), the one-hot encoding with shuffled
+object ids (the reference's video transforms and ``Water_DS.py``), and
+the image trainer's morphological mask noise. Every
 function takes a ``numpy.random.Generator``, so a sample is a pure
 function of (seed, epoch, index). PIL is imported inside the functions
 that use it: the card's machine has none.
@@ -116,6 +118,34 @@ def random_resized_crop_pair(rng: np.random.Generator, img, mask,
     size = (output_size, output_size)
     return (img.resize(size, Image.BICUBIC, box=box),
             mask.resize(size, Image.NEAREST, box=box))
+
+
+def random_mask_perturbation(rng: np.random.Generator,
+                             mask: np.ndarray, iters: Tuple[int, int] = (1, 4)
+                             ) -> np.ndarray:
+    """Morphological noise on a binary mask: 1 to 4 steps, each a
+    4-neighbour dilation or erosion with even odds."""
+    out = mask.astype(bool)
+    n = int(rng.integers(iters[0], iters[1] + 1))
+    for _ in range(n):
+        if rng.random() < 0.5:
+            out = _binary_dilate(out)
+        else:
+            out = _binary_erode(out)
+    return out.astype(mask.dtype)
+
+
+def _binary_dilate(m: np.ndarray) -> np.ndarray:
+    out = m.copy()
+    out[1:] |= m[:-1]
+    out[:-1] |= m[1:]
+    out[:, 1:] |= m[:, :-1]
+    out[:, :-1] |= m[:, 1:]
+    return out
+
+
+def _binary_erode(m: np.ndarray) -> np.ndarray:
+    return ~_binary_dilate(~m)
 
 
 def to_onehot_shuffled(rng: Optional[np.random.Generator], mask: np.ndarray,

@@ -1,5 +1,5 @@
 """Generalized R-CNN: backbone -> FPN -> RPN -> ROI heads (counterpart of
-``vfloodnet_tpu.models.detection.meta``), inference only, static shapes.
+``vfloodnet_tpu.models.detection.meta``), static shapes.
 
 :class:`GeneralizedRCNN` has the JAX module's three halves as plain
 methods: :meth:`~GeneralizedRCNN.infer_front` (backbone, FPN, RPN),
@@ -13,6 +13,15 @@ Detectron2's resize on the model's device, the masks pasted (OpenCV's
 ``INTER_LINEAR`` of ``ops/resize.py``: the card's machine has no cv2) and
 the keypoints read from their heatmaps (numpy's ``argmax``, the first
 index on ties) on the host.
+
+``GeneralizedRCNN(cfg, trainable_bn=True)`` is the training form
+(``train/train_detection.py``): the backbone's BNs are
+:class:`..resnet.TrainBN`, frozen, and the trainer calls the JAX module's
+trainer-facing pieces, :meth:`~GeneralizedRCNN.features`,
+:meth:`~GeneralizedRCNN.rpn_raw`, :meth:`~GeneralizedRCNN.box_apply`,
+:meth:`~GeneralizedRCNN.mask_apply` and
+:meth:`~GeneralizedRCNN.keypoint_apply`, differentiable through the
+ROIAlign gathers.
 
 The JAX package's ``jit_split`` is not ported: it works around a TPU
 crash.
@@ -33,6 +42,7 @@ import torch.nn as nn
 from ...core.device import resolve_device
 from ...ops.resize import cv2_linear_f32, cv2_linear_u8
 from ...ops.roi_align import LevelTable
+from ..resnet import FrozenBN, TrainBN
 from .backbone import DetectionResNet
 from .fpn import FPN
 from .heads import (BoxHead, CoarseMaskHead, KeypointHead, MaskHead,
@@ -65,11 +75,12 @@ class RCNNConfig:
 
 
 class GeneralizedRCNN(nn.Module):
-    def __init__(self, cfg: RCNNConfig):
+    def __init__(self, cfg: RCNNConfig, trainable_bn: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.backbone = DetectionResNet(tuple(cfg.blocks), cfg.groups,
-                                        cfg.width_per_group)
+        self.backbone = DetectionResNet(
+            tuple(cfg.blocks), cfg.groups, cfg.width_per_group,
+            TrainBN if trainable_bn else FrozenBN)
         self.fpn = FPN()
         self.rpn = RPN(post_nms_topk=cfg.post_nms_topk)
         self.box_head = BoxHead(cfg.num_classes)
@@ -96,8 +107,40 @@ class GeneralizedRCNN(nn.Module):
 
     def pyramid(self, image_bgr: torch.Tensor):
         """image -> [P2, ..., P6] ([1, C, H, W] each)."""
-        x = (image_bgr - self.pixel_mean)[None].permute(0, 3, 1, 2)
+        mean = self.pixel_mean
+        if image_bgr.dtype == torch.float64:
+            # the JAX package's Python floats, not their float32 roundings
+            mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float64,
+                                device=image_bgr.device)
+        x = (image_bgr - mean)[None].permute(0, 3, 1, 2)
         return self.fpn(self.backbone(x))
+
+    # ---- the trainer's pieces (the targets are assigned outside) --------
+    def features(self, image_bgr: torch.Tensor):
+        """image [H, W, 3] -> (the pyramid [P2, ..., P6], P2..P5 as a
+        :class:`LevelTable` for the ROI heads)."""
+        pyramid = self.pyramid(image_bgr)
+        return pyramid, LevelTable(
+            [p[0].permute(1, 2, 0) for p in pyramid[:4]], STRIDES)
+
+    def rpn_raw(self, pyramid):
+        """Per-level objectness logits [H W A] and deltas [H W A, 4], in
+        the JAX package's NHWC flatten order."""
+        logits, deltas = self.rpn.head(pyramid)
+        return ([lg.permute(0, 2, 3, 1).reshape(-1) for lg in logits],
+                [dl.permute(0, 2, 3, 1).reshape(-1, 4) for dl in deltas])
+
+    def box_apply(self, feats: LevelTable, rois: torch.Tensor):
+        """(class scores [R, K + 1], class deltas [R, 4 K])."""
+        return self.box_head(feats.roi_align(rois, 7))
+
+    def mask_apply(self, feats: LevelTable, rois: torch.Tensor):
+        """Mask logits [R, 28, 28, K]."""
+        return self.mask_head(feats.roi_align(rois, 14))
+
+    def keypoint_apply(self, feats: LevelTable, rois: torch.Tensor):
+        """Keypoint heatmaps [R, 56, 56, K]."""
+        return self.keypoint_head(feats.roi_align(rois, 14))
 
     def infer_front(self, image_bgr: torch.Tensor):
         """Backbone, FPN and RPN: (P2..P5 as one :class:`LevelTable` of

@@ -28,12 +28,12 @@ RPN_STRIDES = (4, 8, 16, 32, 64)
 @functools.lru_cache(maxsize=32)
 def generate_anchors(h: int, w: int, stride: int, size: int,
                      device: torch.device = torch.device("cpu"),
-                     ratios: Sequence[float] = ASPECT_RATIOS
-                     ) -> torch.Tensor:
+                     ratios: Sequence[float] = ASPECT_RATIOS,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Anchor boxes [h*w*A, 4] xyxy centred on each cell, made on
-    ``device`` (no host copy) once per size."""
-    ys = (torch.arange(h, device=device, dtype=torch.float32) + 0.5) * stride
-    xs = (torch.arange(w, device=device, dtype=torch.float32) + 0.5) * stride
+    ``device`` (no host copy) once per size, in ``dtype``."""
+    ys = (torch.arange(h, device=device, dtype=dtype) + 0.5) * stride
+    xs = (torch.arange(w, device=device, dtype=dtype) + 0.5) * stride
     cy, cx = torch.meshgrid(ys, xs, indexing="ij")
     anchors = []
     area = float(size * size)

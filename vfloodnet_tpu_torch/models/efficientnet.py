@@ -1,5 +1,5 @@
 """EfficientNet-B4 feature encoder (counterpart of
-``vfloodnet_tpu.models.efficientnet``), inference only.
+``vfloodnet_tpu.models.efficientnet``).
 
 The encoder of the still-image water model: MBConv stages with
 squeeze-and-excitation and frozen BatchNorm, B0's stage table scaled by
@@ -12,18 +12,21 @@ first stage as in the JAX package's default.
 Module and parameter names follow the Flax ones (``stem_conv``,
 ``stage{s}_block{b}``, ``expand_conv``, ``dw_conv``, ``se.reduce``, ...),
 so the weight bridge maps them by path. The public forward is NHWC, as in
-the JAX package; inside, the convolutions run NCHW.
+the JAX package; inside, the convolutions run NCHW. ``norm`` is
+:class:`.resnet.FrozenBN` (serving) or :class:`.resnet.TrainBN`
+(training, with the JAX ``bn_eps``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import Conv2d, FrozenBN
+from .resnet import Conv2d, FrozenBN, TrainBN, wide
 
 # Base (B0) stage spec: (expand, kernel, stride, in_f, out_f, repeats)
 B0_STAGES = [
@@ -58,7 +61,7 @@ class SqueezeExcite(nn.Module):
     def forward(self, x):
         s = x.mean(dim=(2, 3), keepdim=True)
         s = self.expand(F.silu(self.reduce(s)))
-        return x * torch.sigmoid(s.float()).to(x.dtype)
+        return x * torch.sigmoid(wide(s)).to(x.dtype)
 
 
 # efficientnet-pytorch bakes its "same" padding at the model's nominal
@@ -71,21 +74,22 @@ SMP_B4_S2_PADS = {"stem": (0, 1), 1: (0, 1), 2: (2, 2), 3: (0, 1),
 
 class MBConv(nn.Module):
     def __init__(self, in_f: int, expand: int, kernel: int, stride: int,
-                 out_f: int, se_from: int, dtype: torch.dtype, pad=None):
+                 out_f: int, se_from: int, dtype: torch.dtype, pad=None,
+                 norm=FrozenBN):
         super().__init__()
         mid = in_f * expand
         self.expand = expand
         self.pad = pad
         if expand != 1:
             self.expand_conv = Conv2d(in_f, mid, 1, bias=False, dtype=dtype)
-            self.expand_bn = FrozenBN(mid, dtype)
+            self.expand_bn = norm(mid, dtype)
         self.dw_conv = Conv2d(mid, mid, kernel, stride=stride,
                               padding=kernel // 2 if pad is None else 0,
                               groups=mid, bias=False, dtype=dtype)
-        self.dw_bn = FrozenBN(mid, dtype)
+        self.dw_bn = norm(mid, dtype)
         self.se = SqueezeExcite(mid, max(1, se_from // 4), dtype)
         self.project_conv = Conv2d(mid, out_f, 1, bias=False, dtype=dtype)
-        self.project_bn = FrozenBN(out_f, dtype)
+        self.project_bn = norm(out_f, dtype)
         self.residual = stride == 1 and in_f == out_f
 
     def forward(self, x):
@@ -106,8 +110,11 @@ class EfficientNetFeatures(nn.Module):
     and the /2 level taken from the stem."""
 
     def __init__(self, width: float = 1.4, depth: float = 1.8,
-                 dtype: torch.dtype = torch.float32, smp: bool = False):
+                 dtype: torch.dtype = torch.float32, smp: bool = False,
+                 norm=FrozenBN, bn_eps: float = 1e-5):
         super().__init__()
+        if norm is TrainBN:
+            norm = functools.partial(TrainBN, eps=bn_eps)
         self.dtype = dtype
         self.smp = smp
         stem_f = round_filters(32, width)
@@ -115,7 +122,7 @@ class EfficientNetFeatures(nn.Module):
         self.stem_conv = Conv2d(3, stem_f, 3, stride=2,
                                 padding=0 if smp else 1,
                                 bias=False, dtype=dtype)
-        self.stem_bn = FrozenBN(stem_f, dtype)
+        self.stem_bn = norm(stem_f, dtype)
         self.blocks = nn.ModuleDict()
         # block name -> whether the pyramid level before it ends (stride 2)
         self.taps = {}
@@ -130,7 +137,7 @@ class EfficientNetFeatures(nn.Module):
                     else None
                 self.blocks[name] = MBConv(
                     in_f, e, k, stride, out_sf,
-                    in_sf if bi == 0 else out_sf, dtype, pad)
+                    in_sf if bi == 0 else out_sf, dtype, pad, norm)
                 self.taps[name] = stride == 2
                 in_f = out_sf
 

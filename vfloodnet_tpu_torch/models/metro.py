@@ -19,6 +19,11 @@ the BERT layers use epsilon 1e-12 and the exact GELU; Flax's attention
 scales the query by 1/sqrt(head_dim) before the product, BERT's the
 scores after it. Both models take a batch of crops along a leading axis
 (the JAX modules take one crop or a batch as written).
+
+``BodyMeshRegressor(trainable_bn=True)`` is the training form
+(``train/train_bodymesh.py``): its ResNet's BNs are
+:class:`.resnet.TrainBN`, live in training as the JAX trainer's are, so it
+trains on one crop at a time (a batch would pool their statistics).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .resnet import ResNet50Backbone
+from .resnet import FrozenBN, ResNet50Backbone, TrainBN
 
 NUM_JOINTS = 14
 NUM_VERTICES = 431    # METRO's coarse SMPL mesh (sub2 downsample)
@@ -267,17 +272,21 @@ class EncoderStage(nn.Module):
 class BodyMeshRegressor(nn.Module):
     """Crops [N, 224, 224, 3] RGB in [0, 1] -> (verts [N, 431, 3], joints
     [N, 14, 3], cam [N, 3]), the camera's scale about 1. ``backbone``:
-    "resnet50" (layer 3's 1024-channel grid) or "hrnet64"."""
+    "resnet50" (layer 3's 1024-channel grid) or "hrnet64"; a ResNet takes
+    ``trainable_bn`` (the training form) and the convolutions' ``dtype``
+    (float64 for checks)."""
 
     def __init__(self, stage_dims: Sequence[int] = (1024, 256, 128),
-                 backbone: str = "resnet50"):
+                 backbone: str = "resnet50", trainable_bn: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = _ImageNorm()
         if backbone == "hrnet64":
             from .hrnet import HRNet
             self.backbone, feat_dim = HRNet(width=64), 2048
         else:
-            self.backbone, feat_dim = ResNet50Backbone(), 1024
+            self.backbone, feat_dim = ResNet50Backbone(
+                dtype=dtype, norm=TrainBN if trainable_bn else FrozenBN), 1024
         n_tok = NUM_JOINTS + NUM_VERTICES
         self.token_embed = nn.Parameter(torch.zeros(n_tok, 512))
         self.n_stages = len(stage_dims)

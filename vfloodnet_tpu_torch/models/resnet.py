@@ -21,6 +21,8 @@ float32 and casts its output back to it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -81,13 +83,17 @@ class TrainBN(nn.Module):
     them, and leaves them (detached) in ``batch_mean`` / ``batch_var``
     for the trainer, which makes the running update ``0.9 * stat + 0.1 *
     batch`` itself (:func:`vfloodnet_tpu_torch.train.train_video.
-    video_clip_loss`); the buffers are never changed here."""
+    video_clip_loss`); the buffers are never changed here.
 
-    EPS = 1e-5
+    ``dtype`` None gives the output the input's dtype (the detector's
+    BNs, which have no compute dtype of their own); ``eps`` is the JAX
+    ``FrozenBN``'s (1e-3 in efficientnet-pytorch's encoder)."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None,
+                 eps: float = 1e-5):
         super().__init__()
         self.dtype = dtype
+        self.eps = eps
         self.live = False
         self.batch_mean = self.batch_var = None
         self.scale = nn.Parameter(torch.ones(channels))
@@ -103,9 +109,12 @@ class TrainBN(nn.Module):
             self.batch_mean, self.batch_var = mean.detach(), var.detach()
         else:
             mean, var = self.mean, self.var
-        inv = self.scale * torch.reciprocal(torch.sqrt(var + self.EPS))
+        # the square root through float64: torch's float32 one on the CPU
+        # is not always correctly rounded, numpy's fold and XLA's are
+        root = torch.sqrt((var + self.eps).double()).to(var.dtype)
+        inv = self.scale * torch.reciprocal(root)
         return ((xf - mean[:, None, None]) * inv[:, None, None]
-                + self.bias[:, None, None]).to(self.dtype)
+                + self.bias[:, None, None]).to(self.dtype or x.dtype)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,

@@ -165,13 +165,15 @@ def _bicubic_bf16(x: torch.Tensor, out_hw, h_ax: int, w_ax: int):
 
 def _bilinear(x: torch.Tensor, out_hw, h_ax: int, w_ax: int,
               antialias: bool) -> torch.Tensor:
-    """Separable ``jax.image.resize`` linear in float32: the H pass, then
-    the W pass; the result in ``x``'s dtype."""
-    y = x.float()
+    """Separable ``jax.image.resize`` linear in float32 (float64 for a
+    float64 ``x``): the H pass, then the W pass; the result in ``x``'s
+    dtype."""
+    y = x if x.dtype == torch.float64 else x.float()
     for ax, n_out in ((h_ax, out_hw[0]), (w_ax, out_hw[1])):
         if y.shape[ax] == n_out:
             continue
-        taps = _linear_taps(y.shape[ax], n_out, antialias, y.device)
+        taps = _linear_taps(y.shape[ax], n_out, antialias,
+                            y.device).to(y.dtype)
         y = (y.movedim(ax, -1) @ taps).movedim(-1, ax)
     return y.to(x.dtype)
 
@@ -270,6 +272,39 @@ def cv2_linear_f32(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     rows = img[:, x0] * a0 + img[:, x1] * a1
     return (rows[y0] * b0[:, None] + rows[y1] * b1[:, None]).astype(
         np.float32)
+
+
+def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``a * b + c`` of float32 arrays rounded once to float32 (a fused
+    multiply-add; the float64 product of two float32 values is exact)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def cv2_linear_float(img: np.ndarray, out_hw: Tuple[int, int]
+                     ) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` of a float32 [H, W] or [H, W, C] image,
+    as OpenCV 5.0.0 computes it for a source at least 25 pixels wide
+    (narrower ones, enlarged more than about 9 times, take another
+    kernel): sample positions ``(i + 0.5) * in / out - 0.5`` in float64,
+    the fraction rounded to float32, indices clamped to the edge, and each
+    pass a fused ``s0 + frac * (s1 - s0)``, the rows first."""
+    img = img.astype(np.float32)
+    chan = (1,) * (img.ndim - 2)
+
+    def taps(n_in, n_out):
+        f = (np.arange(n_out) + 0.5) * (np.float64(n_in) / n_out) - 0.5
+        i0 = np.floor(f)
+        frac = (f - i0).astype(np.float32)
+        i0 = i0.astype(np.int64)
+        return (np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1),
+                frac)
+
+    x0, x1, a = taps(img.shape[1], out_hw[1])
+    y0, y1, b = taps(img.shape[0], out_hw[0])
+    s0 = img[:, x0]
+    rows = _fma32(a.reshape((1, -1) + chan), img[:, x1] - s0, s0)
+    r0 = rows[y0]
+    return _fma32(b.reshape((-1, 1) + chan), rows[y1] - r0, r0)
 
 
 def _cv2_nearest_index(n_in: int, n_out: int) -> np.ndarray:

@@ -37,7 +37,7 @@ from ..core.config import (PEOPLE_BOX_SCORE_MIN, PEOPLE_META,
 from ..ops.contour import (approx_poly_dp, arc_length, contour_area,
                            find_external_contours)
 from ..ops.homography import find_homography, perspective_transform
-from ..ops.resize import cv2_linear_u8, cv2_nearest
+from ..ops.resize import cv2_linear_float, cv2_linear_u8, cv2_nearest
 from ..utils.draw import dot, line
 
 
@@ -219,8 +219,10 @@ BOUNDARY_COLOR = (200, 0, 0)
 def crop_person(img: np.ndarray, water_mask: np.ndarray, box,
                 scale_ratio: float = 1.5, out_size: int = 224):
     """A square crop around a person box, clamped to the image, resized to
-    ``out_size`` (OpenCV's uint8 ``INTER_LINEAR``) with the water mask's
-    crop (OpenCV's ``INTER_NEAREST``)."""
+    ``out_size`` (OpenCV's ``INTER_LINEAR``: the uint8 form for a uint8
+    image, the float form for a float32 one, as the body-mesh trainer's
+    rendered scenes are) with the water mask's crop (OpenCV's
+    ``INTER_NEAREST``)."""
     img_h, img_w = img.shape[:2]
     x1, y1, x2, y2 = box
     cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
@@ -240,8 +242,12 @@ def crop_person(img: np.ndarray, water_mask: np.ndarray, box,
     if bottom >= img_h:
         top -= (bottom - img_h)
         bottom = img_h
-    crop = cv2_linear_u8(torch.from_numpy(np.ascontiguousarray(
-        img[top:bottom, left:right])), (out_size, out_size)).numpy()
+    if img.dtype == np.uint8:
+        crop = cv2_linear_u8(torch.from_numpy(np.ascontiguousarray(
+            img[top:bottom, left:right])), (out_size, out_size)).numpy()
+    else:
+        crop = cv2_linear_float(img[top:bottom, left:right],
+                                (out_size, out_size))
     mask_crop = cv2_nearest(water_mask[top:bottom, left:right],
                             (out_size, out_size))
     return crop, mask_crop

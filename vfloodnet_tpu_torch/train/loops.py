@@ -1,14 +1,14 @@
-"""The video trainer's loop (counterpart of
-``vfloodnet_tpu.train.loops.run_video_training``).
+"""The video and image trainers' loops (counterpart of
+``vfloodnet_tpu.train.loops``).
 
-Epochs over a :class:`..data.BatchLoader`, a log line and a
-``metrics.jsonl`` record every ``log_every`` steps and at each epoch's
-end, a snapshot of the sources in the log directory, and checkpoints
-where the JAX loop writes orbax ``final/`` and ``best/``: ``final.pt``
-after every epoch and ``best.pt`` at the lowest epoch loss, each holding
-the model's ``state_dict``, the optimiser's state, the step and the
-epoch, plus ``best.npz``, the weights in the JAX package's flat layout,
-which both packages' ``load_afb_urr`` read.
+Epochs over a :class:`..data.BatchLoader`, log lines and
+``metrics.jsonl`` records, and checkpoints where the JAX loops write
+orbax ``final/`` and ``best/``: ``final.pt`` after every epoch and
+``best.pt`` at the best epoch, each holding the model's ``state_dict``,
+the optimiser's state, the step and the epoch, plus ``best.npz``, the
+weights in the JAX package's flat layout, which both packages' loaders
+read (``load_afb_urr``, ``load_linknet``). The video loop also snapshots
+the sources into the log directory; the image loop plots its curves.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 from ..core.checkpoint import save_flat_npz
-from ..core.convert import export_afb_urr_variables
+from ..core.convert import (export_afb_urr_variables,
+                            export_linknet_variables)
 from ..data import BatchLoader
 from ..utils import AvgMeter, MetricWriter, gct, save_scripts
 
@@ -28,14 +29,27 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _save(path: str, model, opt, step: int,
-                          epoch: int) -> None:
+def _save(path: str, model, opt, step: int, epoch: int) -> None:
     """``{"model", "optimizer", "step", "epoch"}`` through a temporary file
     renamed into place."""
     tmp = path + ".tmp"
     torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
                 "step": step, "epoch": epoch}, tmp)
     os.replace(tmp, path)
+
+
+def _resume(path: Optional[str], model, opt, steps_per_epoch: int) -> int:
+    """Restore model and optimiser from a ``final.pt``/``best.pt`` at
+    ``path``, if there is one; the epoch to start at."""
+    if not (path and os.path.exists(path)):
+        return 0
+    device = next(model.parameters()).device
+    blob = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(blob["model"])
+    opt.load_state_dict(blob["optimizer"])
+    start = int(blob["step"]) // steps_per_epoch
+    print(gct(), f"Resumed from {path} at epoch {start}")
+    return start
 
 
 def run_video_training(model, cfg, dataset, log_dir: str,
@@ -54,13 +68,7 @@ def run_video_training(model, cfg, dataset, log_dir: str,
     loader = BatchLoader(dataset, batch_size, shuffle=True, seed=cfg.seed)
     steps_per_epoch = max(len(loader), 1)
     opt = init_video_train_state(model, cfg, steps_per_epoch)
-    start_epoch = 0
-    if resume and os.path.exists(resume):
-        blob = torch.load(resume, map_location=device, weights_only=True)
-        model.load_state_dict(blob["model"])
-        opt.load_state_dict(blob["optimizer"])
-        start_epoch = int(blob["step"]) // steps_per_epoch
-        print(gct(), f"Resumed from {resume} at epoch {start_epoch}")
+    start_epoch = _resume(resume, model, opt, steps_per_epoch)
     step_fn = make_video_train_step(model, opt, cfg)
 
     best_loss = float("inf")
@@ -92,3 +100,96 @@ def run_video_training(model, cfg, dataset, log_dir: str,
                 save_flat_npz(best_npz,
                               export_afb_urr_variables(model.state_dict()))
     return best_npz
+
+
+def run_image_training(model, cfg, dataset, log_dir: str,
+                       val_dataset=None, resume: Optional[str] = None,
+                       log_every: int = 10) -> str:
+    """Train the training-form LinkNet ``model`` (on its device) for
+    ``cfg.epochs`` epochs of ``dataset``. With ``val_dataset``, a
+    validation epoch (stored BN statistics, full batches only, as the
+    JAX loop skips a short last one) follows each training epoch and
+    ``best`` follows the validation IoU, else the training IoU;
+    ``resume`` as in :func:`run_video_training`. Writes ``curves.png``
+    where matplotlib is installed. Returns the path of ``best.npz``."""
+    from .train_image import (init_image_train_state, iou_metric,
+                              make_image_train_step)
+
+    os.makedirs(log_dir, exist_ok=True)
+    device = next(model.parameters()).device
+    loader = BatchLoader(dataset, cfg.batch_size, shuffle=True,
+                         seed=cfg.seed)
+    steps_per_epoch = max(len(loader), 1)
+    opt = init_image_train_state(model, cfg, steps_per_epoch)
+    start_epoch = _resume(resume, model, opt, steps_per_epoch)
+    step_fn = make_image_train_step(model, opt, cfg.update_bn)
+    val_loader = None if val_dataset is None else BatchLoader(
+        val_dataset, cfg.batch_size, shuffle=False, seed=cfg.seed,
+        drop_last=False)
+
+    def upload(a):
+        return torch.from_numpy(a).to(device)
+
+    history = []
+    best_iou = -1.0
+    best_npz = os.path.join(log_dir, "best.npz")
+    with MetricWriter(log_dir) as metrics:
+        for epoch in range(start_epoch, cfg.epochs):
+            loss_m, iou_m = AvgMeter(), AvgMeter()
+            for bi, (images, masks) in enumerate(loader.epoch(epoch)):
+                loss, iou = step_fn(upload(images), upload(masks))
+                loss_m.update(float(loss))
+                iou_m.update(float(iou))
+                if bi % log_every == 0:
+                    print(gct(), f"epoch {epoch} step {bi}/"
+                          f"{steps_per_epoch} dice {loss_m.avg:.4f} "
+                          f"iou {iou_m.avg:.4f}")
+            select_iou = iou_m.avg
+            if val_loader is not None:
+                val_m = AvgMeter()
+                with torch.no_grad():
+                    for images, masks in val_loader.epoch(0):
+                        if images.shape[0] != cfg.batch_size:
+                            continue
+                        prob = model(upload(images))[..., 0]
+                        val_m.update(float(iou_metric(prob, upload(masks))))
+                select_iou = val_m.avg
+                print(gct(), f"epoch {epoch}: val iou {val_m.avg:.4f}")
+            history.append((loss_m.avg, iou_m.avg))
+            print(gct(), f"epoch {epoch}: dice {loss_m.avg:.4f} "
+                  f"iou {iou_m.avg:.4f}")
+            metrics.write("epoch", step=opt.count, epoch=epoch,
+                          dice=loss_m.avg, iou=iou_m.avg,
+                          select_iou=select_iou)
+            _save(os.path.join(log_dir, "final.pt"), model, opt, opt.count,
+                  epoch)
+            if select_iou > best_iou:
+                best_iou = select_iou
+                _save(os.path.join(log_dir, "best.pt"), model, opt,
+                      opt.count, epoch)
+                save_flat_npz(best_npz,
+                              export_linknet_variables(model.state_dict()))
+    _plot_curves(history, log_dir)
+    return best_npz
+
+
+def _plot_curves(history, log_dir: str) -> None:
+    """Dice and IoU per epoch into ``curves.png``. matplotlib is imported
+    here; a plotting failure (no matplotlib, as on the card's machine) is
+    printed and the run goes on, as in the JAX loop."""
+    if not history:
+        return
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        losses, ious = zip(*history)
+        fig, ax = plt.subplots(1, 2, figsize=(10, 4))
+        ax[0].plot(losses)
+        ax[0].set_title("dice loss")
+        ax[1].plot(ious)
+        ax[1].set_title("IoU@0.5")
+        fig.savefig(os.path.join(log_dir, "curves.png"), dpi=120)
+        plt.close(fig)
+    except Exception as e:   # plotting must never kill a training run
+        print(gct(), f"curve plotting failed: {e}")

@@ -272,10 +272,10 @@ def make_video_train_step(model: AFBURR, opt: AdamWClip,
 def _variance_scaling_(w: torch.Tensor, scale: float, mode: str,
                        gen: torch.Generator) -> None:
     """Flax's ``variance_scaling(scale, mode, "truncated_normal")`` on an
-    OIHW kernel: a normal cut at two deviations, rescaled to variance
-    ``scale / fan``."""
-    o, i, kh, kw = w.shape
-    fan = kh * kw * (i if mode == "fan_in" else o)
+    OIHW kernel or an [out, in] dense one: a normal cut at two
+    deviations, rescaled to variance ``scale / fan``."""
+    receptive = w[0, 0].numel() if w.ndim > 2 else 1
+    fan = receptive * (w.shape[1] if mode == "fan_in" else w.shape[0])
     std = math.sqrt(scale / fan) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
