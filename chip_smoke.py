@@ -202,6 +202,25 @@ Phases, each printing one line with its elapsed seconds:
    tiny stop-sign weights through ``export_rcnn_variables`` and the
    serving ``load_default_detector`` detect on a rendered scene, which
    launches the NMS kernel.
+17. the feature bank sharded over ranks, the trainers' data parallelism
+   and the mask PNGs, on a world of one rank over NCCL made in this
+   process (``parallel.init_local_world``: an in-memory store, no other
+   process): (a) ``ShardedVideoSegEngine`` in float32 and bf16 (phases 4
+   and 10's weights, budget 250,000, 8 synthetic 1080p frames, the device
+   CC cleanup) against the eager ``VideoSegEngine`` on the same frames:
+   float32 labels > 0.99 a frame and valid counts, occ, replace_n and
+   peak_n equal; bf16 labels at least phase 10's CPU bf16-vs-float32
+   agreement less 0.01; the read, combine, count and CC kernels once a
+   step, no other bank kernel, the sharded read's plain versions never;
+   the sharded eager step's ms beside the single engine's eager one on
+   the same frames and phase 5's or 10's replayed one; (b) the shard-local kernels at R = 2, 4 and 8 (see
+   :func:`shard_kernel_phase`; on the main path's bank against a float64
+   read and float64 counts, within twice the plain float32 version's
+   error), each shard's read and count ms; (c) the
+   video and image trainers' ``mesh=`` step against the plain step, bit
+   for bit over 3 steps, frozen and live BN; (d) a 1080p mask through the
+   port's PNG writer and reader (no PIL on this machine), read back equal,
+   ms of each.
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
@@ -210,7 +229,9 @@ phase 12(b) and (c) as ``launches_batch`` and
 ``launches_batch_float32``, its phase-12(a) numbers as ``batch4``, the
 batch phases' under ``batch``, phase 13's under ``stopsign``, phase 14's
 under ``people``, phase 15's under ``training``, phase 16's under
-``trainers``; the NMS kernel's row
+``trainers``, phase 17's under ``sharded``, and each kernel's launches in
+phase 17(a)'s float32 and bf16 runs together as ``launches_sharded``; the
+NMS kernel's row
 counts its launches an image, the people detector's under ``people``)
 and, last,
 ``{"ok": true, "device": {...}}``. In the JSON line, ``bank_read`` times
@@ -293,6 +314,12 @@ from vfloodnet_tpu_torch.train import train_bodymesh as tbm
 from vfloodnet_tpu_torch.train import train_detection as tdet
 from vfloodnet_tpu_torch.train import train_image as timg
 from vfloodnet_tpu_torch.train.loops import run_image_training
+from vfloodnet_tpu_torch import native
+from vfloodnet_tpu_torch.parallel import (close_world, init_local_world,
+                                          make_mesh, sharded_read)
+from vfloodnet_tpu_torch.pipelines.video_seg_sharded import \
+    ShardedVideoSegEngine
+from vfloodnet_tpu_torch.utils import COLOR_PALETTE
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -3479,6 +3506,488 @@ def trainers_phase():
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 17: the bank sharded over ranks, data-parallel training, mask PNGs
+# --------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4, 8)
+
+
+@contextlib.contextmanager
+def _plain_read_calls():
+    """Calls of the sharded read's plain versions inside the block (a
+    CUDA bank must take none)."""
+    calls = {"read": 0, "count": 0}
+    saved = sharded_read._read_occ_sweep, sharded_read._count_occ_sweep
+
+    def counted(fn, name):
+        def inner(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return inner
+    sharded_read._read_occ_sweep = counted(saved[0], "read")
+    sharded_read._count_occ_sweep = counted(saved[1], "count")
+    try:
+        yield calls
+    finally:
+        sharded_read._read_occ_sweep, sharded_read._count_occ_sweep = saved
+
+
+def _host_steps(eng, state, frames):
+    """Steps 1.. over ``frames``, each timed on the host clock between
+    synchronisations: (state, host labels, ms a step)."""
+    ms, labels = [], []
+    for i, f in enumerate(frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, lab = eng.step(state, f, i + 1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        labels.append(eng.fetch_label(lab))
+    return state, labels, ms
+
+
+def sharded_engine_phase(model, mesh, kernels, replay_ms, gap=None):
+    """17(a) for ``model``'s dtype: the sharded engine on a world of one
+    against the eager single engine on the same 8 synthetic 1080p frames
+    (both timed; ``replay_ms``, the single engine's replayed step of phase
+    5 or 10, beside them), trained weights, budget
+    250,000, the device CC cleanup. Each of ``kernels`` and the CC kernel
+    launch once a step, no other bank kernel, and the sharded read's plain
+    versions never. float32: labels > 0.99 a frame, valid counts, occ and
+    replace_n equal; bf16: labels at least ``gap`` (the CPU's bf16-vs-
+    float32 agreement) less 0.01. Returns (results, launches, the final
+    state and the last frame's query for 17(b))."""
+    frames, mask0 = synthetic_clip(9, *FRAME_HW, SEED + 17)
+
+    def engine(cls, *args, **kw):
+        fb = FeatureBank(obj_n=2, memory_budget=BUDGET, dtype=model.dtype,
+                         device=DEV)
+        return cls(model, fb, *args, downsample=DOWNSAMPLE,
+                   postprocess="device", **kw)
+    single = engine(VideoSegEngine, cuda_graph=False)
+    ref, ref_labels, eager_ms = _host_steps(
+        single, single.bootstrap(frames[0], mask0), frames[1:])
+    del single
+    sharded = engine(ShardedVideoSegEngine, mesh)
+    state = sharded.bootstrap(frames[0], mask0)
+    bank_read_cuda.reset_launches()
+    cc_cuda.reset_launches()
+    with _plain_read_calls() as plain:
+        state, labels, ms = _host_steps(sharded, state, frames[1:])
+    launches = {**bank_read_cuda.launches, **cc_cuda.launches}
+    steps = len(frames) - 1
+    want = {k: steps if k in kernels + ("largest_cc",) else 0
+            for k in launches}
+    check(launches == want, f"sharded {model.dtype}: {kernels} and the CC "
+          f"kernel once a step and no other bank kernel: {launches}")
+    check(plain == {"read": 0, "count": 0}, f"sharded {model.dtype}: the "
+          f"plain read and count never ran: {plain}")
+    agree = [float((a == b).mean()) for a, b in zip(labels, ref_labels)]
+    totals = {k: (getattr(state, k).tolist(), getattr(ref, k).tolist())
+              for k in ("occ", "replace_n", "peak_n")}
+    totals["valid"] = (state.valid.sum(1).tolist(),
+                       ref.valid.sum(1).tolist())
+    log("sharded", f"{model.dtype}, world of one (NCCL), 8 steps: labels "
+        f"against the single engine {['%.6f' % a for a in agree]}; "
+        f"(sharded, single) {totals}; eager step ms "
+        f"{['%.1f' % t for t in ms]} (median of steps 2-8 "
+        f"{np.median(ms[1:]):.2f}) beside the single engine's eager "
+        f"{np.median(eager_ms[1:]):.2f} on these frames and replayed "
+        f"{replay_ms:.2f} (phase 5 or 10); launches {launches}")
+    if model.dtype == torch.float32:
+        check(min(agree) > 0.99, "float32 sharded labels > 0.99 a frame")
+        check(all(a == b for a, b in totals.values()),
+              "float32 sharded valid counts, occ, replace_n and peak_n "
+              "equal the single engine's")
+    else:
+        check(min(agree) >= gap - 0.01, f"bf16 sharded labels at least "
+              f"the CPU's bf16-vs-float32 agreement less 0.01 "
+              f"({gap - 0.01:.6f})")
+    frame = torch.from_numpy(frames[-1]).to(DEV)
+    small = resize(frame.to(model.dtype) / 255.0,
+                   short_side_size(*FRAME_HW, DOWNSAMPLE), "bicubic",
+                   spatial_axes=(0, 1))
+    with torch.no_grad():
+        q = sharded.model.encode_query(small[None])[0][0].contiguous()
+    res = {"agreement": agree, "totals": totals, "ms": ms,
+           "ms_median": float(np.median(ms[1:])),
+           "single_eager_ms": float(np.median(eager_ms[1:])),
+           "single_replay_ms": replay_ms,
+           "launches": launches}
+    return res, launches, state, q
+
+
+def _combine_over_shards(parts, valids):
+    """The all-reduce combine with a stacked shard axis: every shard's
+    (mem, m, l) and valid -> (mem, log_thres)."""
+    mem, m, l = (torch.stack([p[i] for p in parts]) for i in range(3))
+    has = torch.stack([v.any(dim=-1) for v in valids])
+
+    def reduce(op):
+        return lambda t: t.copy_(op(t).expand_as(t))
+    out = sharded_read.combine_shards(
+        mem, m, l, has, reduce(lambda t: t.amax(0, keepdim=True)),
+        reduce(lambda t: t.sum(0, keepdim=True)), THRES)
+    return out[0][0], out[1][0]
+
+
+def _mem_close(got, want, exact, tol):
+    """``got`` within ``tol`` of ``want``; for bf16, an element where
+    ``want`` (a plain version) is itself off the float32-probability read
+    ``exact`` and ``got`` is not is held to ``exact`` (as phase 9)."""
+    near = torch.isclose(got, want, **tol)
+    if exact is not None:
+        near |= ~torch.isclose(want, exact, **tol) & \
+            torch.isclose(got, exact, **tol)
+    return bool(near.all())
+
+
+def _shards_against_plain(q, shards, tol, bf16):
+    """Each shard's read kernel (with its combine) against the plain
+    version on that shard: mem within ``tol`` (bf16: phase 9's rule), m
+    within rtol 1e-5 / atol 1e-5, l within rtol 1e-4; its largest mem
+    error."""
+    errs = []
+    for kr, vr, okr in shards:
+        bound = sharded_read.shard_occ_bound(okr)
+        b = int(bound)
+        mem_k, m_k, l_k, _ = bank_read_cuda.bank_read(
+            q, kr, vr, okr, bound, attention.OCC_CHUNK, THRES)
+        mem_p, m_p, l_p, _, _ = _plain(q, kr, vr, okr, b)
+        n_visit = attention.visited_slots(kr.shape[1], attention.OCC_CHUNK,
+                                          b)
+        exact = _exact_mem(q, kr, vr, okr, n_visit) if bf16 else None
+        check(_mem_close(mem_k, mem_p, exact, tol) and
+              torch.allclose(m_k, m_p, rtol=1e-5, atol=1e-5) and
+              torch.allclose(l_k, l_p, rtol=1e-4, atol=0),
+              f"a shard's kernel read within the bounds of its plain "
+              f"version (bound {b}, {kr.dtype}): mem max|err| "
+              f"{(mem_k - mem_p).abs().max().item():.3e}")
+        errs.append((mem_k - mem_p).abs().max().item())
+    return max(errs)
+
+
+def _shards_combined(q, shards, timed):
+    """The shards read by the kernels and combined as the all-reduce
+    combines them, each shard counted against the global log_thres by
+    the kernel and by the plain version: (mem, log_thres, the kernel's and
+    the plain counts of the whole bank, read ms and count ms per shard
+    when ``timed``)."""
+    parts, read_ms, count_ms, cnts, cnts_p = [], [], [], [], []
+    bounds = [sharded_read.shard_occ_bound(okr) for _, _, okr in shards]
+    for (kr, vr, okr), bound in zip(shards, bounds):
+        parts.append(bank_read_cuda.bank_read(
+            q, kr, vr, okr, bound, attention.OCC_CHUNK, THRES)[:3])
+        if timed:
+            read_ms.append(time_ms(lambda: bank_read_cuda.bank_read(
+                q, kr, vr, okr, bound, attention.OCC_CHUNK, THRES)))
+    mem_c, lt_c = _combine_over_shards(parts, [s[2] for s in shards])
+    for (kr, _, okr), bound in zip(shards, bounds):
+        cnt_k = bank_read_cuda.bank_count(q, kr, okr, bound, lt_c,
+                                          attention.OCC_CHUNK)
+        cnt_p = torch.stack([attention._count_occ_sweep(
+            kr[o], okr[o], q, lt_c[o], attention.OCC_CHUNK, int(bound))
+            for o in range(OBJ)])
+        cnts.append(cnt_k)
+        cnts_p.append(cnt_p)
+        if timed:
+            count_ms.append(time_ms(lambda: bank_read_cuda.bank_count(
+                q, kr, okr, bound, lt_c, attention.OCC_CHUNK)))
+    return (mem_c, lt_c, torch.cat(cnts, dim=1), torch.cat(cnts_p, dim=1),
+            read_ms, count_ms)
+
+
+def _scores64(q, keys, valid, o):
+    """Object ``o``'s scores in float64 over every slot of ``keys``,
+    invalid slots at the read's NEG_INF."""
+    s = (q.double() @ keys[o].double().T) / math.sqrt(DK)
+    return torch.where(valid[o][None], s,
+                       torch.full_like(s, attention.NEG_INF))
+
+
+def _shards_against_float64(q, shards, lt_c, cnt_k, cnt_p):
+    """17(b) on the main path's bank against an exact reference: each
+    shard that holds valid slots of an object is read in float64, and
+    the kernel's read (with its combine) and the plain float32 version
+    are each held to it; the shards' float64 partials are combined into
+    the float64 log_thres, and the whole bank's counts of the kernel and
+    of the plain version (both against the kernels' combined ``lt_c``)
+    are held to the float64 counts against it. The kernel must be no
+    further from float64 than float32 arithmetic is: its mem, m and l
+    (relative) errors within twice the plain version's largest over the
+    shards (mem at least phase 3's atol), its counts within the larger of
+    1 and twice the plain counts' error. Returns the errors, (kernel,
+    plain) for each of mem, m, l and counts."""
+    err = {k: [0.0, 0.0] for k in ("mem", "m", "l", "cnt")}
+    part64 = {}     # (shard, object): float64 (m, l)
+    for r, (kr, vr, okr) in enumerate(shards):
+        bound = sharded_read.shard_occ_bound(okr)
+        mem_k, m_k, l_k, _ = bank_read_cuda.bank_read(
+            q, kr, vr, okr, bound, attention.OCC_CHUNK, THRES)
+        mem_p, m_p, l_p, _, _ = _plain(q, kr, vr, okr, int(bound))
+        for o in range(OBJ):
+            if not bool(okr[o].any()):
+                continue      # such a shard has no part in the combine
+            s = _scores64(q, kr, okr, o)
+            m = s.amax(1)
+            e = torch.exp(s - m[:, None])
+            l = e.sum(1)
+            mem = (e @ vr[o].double()) / l[:, None]
+            part64[r, o] = (m, l)
+            for i, (mem_x, m_x, l_x) in enumerate(((mem_k, m_k, l_k),
+                                                   (mem_p, m_p, l_p))):
+                err["mem"][i] = max(err["mem"][i],
+                                    (mem_x[o] - mem).abs().max().item())
+                err["m"][i] = max(err["m"][i],
+                                  (m_x[o] - m).abs().max().item())
+                err["l"][i] = max(err["l"][i],
+                                  ((l_x[o] - l).abs() / l).max().item())
+            del s, e
+    n = N // len(shards)
+    for o in range(OBJ):
+        parts = [(r, *part64[r, o]) for r in range(len(shards))
+                 if (r, o) in part64]
+        if not parts:
+            continue
+        m_g = torch.stack([p[1] for p in parts]).amax(0)
+        l_g = sum(l * torch.exp(m - m_g) for _, m, l in parts)
+        lt64 = math.log(THRES) + torch.log(l_g) + m_g
+        for r, _, _ in parts:
+            kr, _, okr = shards[r]
+            cnt64 = (_scores64(q, kr, okr, o) > lt64[:, None]).sum(0)
+            for i, cnt in enumerate((cnt_k, cnt_p)):
+                err["cnt"][i] = max(err["cnt"][i], (
+                    cnt[o, r * n:(r + 1) * n].double() - cnt64
+                ).abs().max().item())
+    for key, (got, plain) in err.items():
+        floor = {"mem": MEM_TOL["atol"], "m": 1e-5, "l": 1e-4,
+                 "cnt": 1.0}[key]      # phase 3's bounds, counts 1
+        check(got <= max(2 * plain, floor), f"main path's bank, "
+              f"{len(shards)} shards: the kernels' {key} within twice the "
+              f"plain float32 version's error against float64 "
+              f"(kernel {got:.3e}, plain {plain:.3e})")
+    return err
+
+
+def shard_kernel_phase(state, q_main):
+    """17(b) for the bank's dtype, each bank cut into R = 2, 4, 8 shards:
+    the main path's bank of 17(a) (valid slots in rank order, as the
+    sharded update fills them), the same with every slot valid (its valid
+    prefix tiled over the capacity) and with none, read by the main path's
+    query of 17(a); and phase 3's bank (seeded randn keys and values, its
+    query 3 x randn) with the same valid prefix and with every slot valid.
+    With every bank the shards are read by the kernels, combined as the
+    all-reduce combines them and held against the unsharded kernel read
+    (mem within phase 3's or 9's bounds, counts within 1), but for the
+    empty bank, whose combined mem is 0 as in JAX (the unsharded read
+    averages the visited values). On phase 3's banks each shard's kernel
+    read and counts are held against the plain versions on that shard
+    (the same bounds; m and l as phase 3). The trained bank's scores reach |1224|, where the
+    float32 rounding of a score alone moves its exponential by 1e-3, so
+    any two float32 summation orders (the kernel's and cuBLAS's) part by
+    more than those bounds there; the kernels' own shard combine is exact
+    to them. So on the main path's banks (but the empty one) each shard's
+    kernel read and the counts are held against a float64 read and
+    float64 counts instead, within twice the plain float32 version's
+    error against the same (:func:`_shards_against_float64`). Each
+    shard's read (with its combine) and count ms on the main path's
+    banks."""
+    dt = state.keys.dtype
+    bf16 = dt == torch.bfloat16
+    tol = MEM_TOL_BF16 if bf16 else MEM_TOL
+    g = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    q_syn = (3.0 * torch.randn(P, DK, device=DEV, generator=g)).to(dt)
+    k_syn = torch.randn(OBJ, N, DK, device=DEV, generator=g).to(dt)
+    v_syn = torch.randn(OBJ, N, DV, device=DEV, generator=g).to(dt)
+    q_main = q_main.to(dt).contiguous()
+    occ = int(state.occ.max())
+    reps = -(-N // occ)
+    every = torch.ones(OBJ, N, dtype=torch.bool, device=DEV)
+    cases = {   # name: (keys, values, valid, q, main path's)
+        "main": (state.keys, state.values, state.valid, q_main, True),
+        "full": (state.keys[:, :occ].repeat(1, reps, 1)[:, :N].contiguous(),
+                 state.values[:, :occ].repeat(1, reps, 1)[:, :N]
+                 .contiguous(), every, q_main, True),
+        "empty": (state.keys, state.values, torch.zeros_like(state.valid),
+                  q_main, True),
+        "phase3_main": (k_syn, v_syn, state.valid, q_syn, False),
+        "phase3_full": (k_syn, v_syn, every, q_syn, False)}
+    out = {}
+    for name, (keys, values, valid, q, main) in cases.items():
+        bound_w = sharded_read.shard_occ_bound(valid)
+        mem_w, _, _, lt_w = bank_read_cuda.bank_read(
+            q, keys, values, valid, bound_w, attention.OCC_CHUNK, THRES)
+        cnt_w = bank_read_cuda.bank_count(q, keys, valid, bound_w, lt_w,
+                                          attention.OCC_CHUNK)
+        exact_w = _exact_mem(q, keys, values, valid, N) if bf16 else None
+        for r_n in SHARD_COUNTS:
+            n = N // r_n
+            shards = [tuple(t[:, r * n:(r + 1) * n].contiguous()
+                            for t in (keys, values, valid))
+                      for r in range(r_n)]
+            shard_err = None if main else _shards_against_plain(
+                q, shards, tol, bf16)
+            mem_c, lt_c, cnt_c, cnt_pc, read_ms, count_ms = \
+                _shards_combined(q, shards, main)
+            cnt_plain_err = (cnt_c - cnt_pc).abs().max().item()
+            exact_err = _shards_against_float64(
+                q, shards, lt_c, cnt_c, cnt_pc) \
+                if main and name != "empty" else None
+            comb_err = (mem_c - mem_w).abs().max().item()
+            cnt_err = (cnt_c - cnt_w).abs().max().item()
+            where = f"{dt} {name} bank, R = {r_n}"
+            if not main:
+                check(cnt_plain_err <= 1.0, f"{where}: each shard's counts "
+                      f"within 1 of the plain count's")
+            check(cnt_err <= 1.0, f"{where}: counts within 1 of the "
+                  f"unsharded count ({cnt_err})")
+            if name == "empty":
+                # the unsharded read averages the visited values (the
+                # single engine's contract); sharded, JAX gives 0
+                check(bool((mem_c == 0).all()) and cnt_c.sum().item() == 0,
+                      f"{where}: mem 0 and no counts, as JAX")
+            else:
+                check(_mem_close(mem_c, mem_w, exact_w, tol),
+                      f"{where}: the combined shards within the bounds of "
+                      f"the unsharded kernel read ({comb_err:.3e})")
+            res = {"combined_mem_err": comb_err, "combined_cnt_err": cnt_err}
+            if main:
+                res.update(read_ms=read_ms, count_ms=count_ms,
+                           float64_err=exact_err)
+            else:
+                res.update(shard_mem_err=shard_err,
+                           shard_cnt_err=cnt_plain_err)
+            out[f"{name}_R{r_n}"] = res
+            log("sharded", f"{where}: " + (
+                f"per shard read + combine ms "
+                f"{['%.3f' % t for t in read_ms]}, count ms "
+                f"{['%.3f' % t for t in count_ms]}; " if main else
+                f"shard vs plain mem max|err| {shard_err:.3e}, counts "
+                f"{cnt_plain_err}; ") + f"combined vs unsharded mem max|err| "
+                f"{comb_err:.3e}, counts {cnt_err}" + (
+                    "" if exact_err is None else "; against float64 "
+                    "(kernel, plain) " + ", ".join(
+                        f"{k} ({a:.3e}, {b:.3e})"
+                        for k, (a, b) in exact_err.items())))
+    del cases, k_syn, v_syn
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_train_phase(mesh):
+    """17(c): the video and image trainers' ``mesh=`` step on the world of
+    one against the plain step, frozen and live BN, 3 steps each from the
+    bundled trained weights, cuDNN deterministic: losses and every state
+    tensor equal bit for bit; ms a step, the median of steps 2-3 (CUDA
+    events). Video: two 240-px clips of 3 frames; image: two 128-px
+    stills."""
+    variables = load_flat_npz(default_checkpoint("video"))
+    image_vars = load_flat_npz(default_checkpoint("image"))
+    clips = [torch.from_numpy(x).to(DEV)
+             for x in training_clips(2, 3, 2, 240, SEED + 18)]
+    stills = [torch.from_numpy(x).to(DEV) for x in image_batch(2, 128,
+                                                              SEED + 19)]
+    out = {}
+    with cudnn_deterministic():
+        for kind in ("video", "image"):
+            for update_bn in (False, True):
+                runs = []
+                for use_mesh in (None, mesh):
+                    if kind == "video":
+                        model = training_form(variables, DEV)
+                        cfg = _train_cfg(update_bn=update_bn)
+                        step = make_video_train_step(
+                            model, init_video_train_state(model, cfg), cfg,
+                            mesh=use_mesh)
+                        inputs = clips
+                    else:
+                        model = image_training_form(image_vars, DEV)
+                        cfg = timg.ImageTrainConfig(update_bn=update_bn)
+                        step = timg.make_image_train_step(
+                            model, timg.init_image_train_state(model, cfg),
+                            update_bn, mesh=use_mesh)
+                        inputs = stills
+                    ms, _, outs = timed_steps(step, [inputs] * 3, warm=1)
+                    runs.append(([torch.stack(o) if isinstance(o, tuple)
+                                  else o for o in outs],
+                                 model.state_dict(), ms))
+                (plain_out, plain_state, plain_ms), (dp_out, dp_state,
+                                                     dp_ms) = runs
+                name = f"{kind}_{'live' if update_bn else 'frozen'}_bn"
+                check(all(torch.equal(a, b) for a, b in
+                          zip(plain_out, dp_out)) and
+                      all(torch.equal(plain_state[k], dp_state[k])
+                          for k in plain_state),
+                      f"{name}: the mesh step equals the plain step bit "
+                      f"for bit over 3 steps")
+                out[name] = {"plain_ms": plain_ms, "mesh_ms": dp_ms,
+                             "losses": [float(o.reshape(-1)[0])
+                                        for o in dp_out]}
+                log("sharded", f"{name}: mesh= step on the world of one "
+                    f"equals the plain step over 3 steps; ms a step {dp_ms:.2f}"
+                    f" (plain {plain_ms:.2f}; medians of steps 2-3)")
+                del runs, model, step
+                torch.cuda.empty_cache()
+    return out
+
+
+def png_phase():
+    """17(d): a 1080p two-label mask through the port's PNG writer and
+    reader on this machine (no PIL here): read back equal; ms of each
+    (median of 3)."""
+    labels = (np.random.RandomState(SEED + 20).rand(*FRAME_HW) * 2).astype(
+        np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mask.png")
+        write_ms, read_ms = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            native.write_palette_png(path, labels, COLOR_PALETTE)
+            write_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            back = native.read_palette_png(path)
+            read_ms.append(1e3 * (time.perf_counter() - t))
+            check(np.array_equal(back, labels), "the 1080p mask reads back "
+                  "equal")
+        size = os.path.getsize(path)
+    res = {"write_ms": float(np.median(write_ms)),
+           "read_ms": float(np.median(read_ms)), "bytes": size}
+    log("sharded", f"1080p two-label mask PNG: write {res['write_ms']:.2f} "
+        f"ms, read {res['read_ms']:.2f} ms (medians of 3, host clock), "
+        f"{size} bytes, read back equal")
+    return res
+
+
+def sharded_phase(model, model16, gap, replay_ms):
+    """Phase 17: (a) the sharded engine on a world of one over NCCL in
+    this process (float32 and bf16), (b) the shard-local kernels at R = 2,
+    4, 8, (c) the trainers' mesh= step, (d) the mask PNGs. Returns
+    (results, {dtype name: the sharded engine's launches})."""
+    t0 = time.perf_counter()
+    init_local_world(DEV)
+    try:
+        mesh = make_mesh()
+        res, launches = {}, {}
+        for name, m, kernels in (
+                ("float32", model, ("bank_read", "bank_read_combine",
+                                    "bank_count")),
+                ("bfloat16", model16, ("bank_read_bf16", "bank_read_combine",
+                                       "bank_count_bf16"))):
+            res[name], launches[name], state, q = sharded_engine_phase(
+                m, mesh, kernels, replay_ms[name], gap)
+            res[name]["shards"] = shard_kernel_phase(state, q)
+            del state, q
+            torch.cuda.empty_cache()
+        res["training"] = dp_train_phase(mesh)
+        res["png"] = png_phase()
+    finally:
+        close_world()
+    res["seconds"] = time.perf_counter() - t0
+    log("sharded", f"phase 17 took {res['seconds']:.1f} s")
+    return res, launches
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -3563,6 +4072,10 @@ def main():
     training = train_phase()
     torch.cuda.empty_cache()
     trainers = trainers_phase()
+    torch.cuda.empty_cache()
+    sharded, launches_sh = sharded_phase(
+        model, model16, gaps[1],
+        {k: v[0]["graph_ms"] for k, v in steps.items()})
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -3570,6 +4083,8 @@ def main():
         row["launches_waterlevel"] = launches_wl[row["name"]]
         row["launches_batch"] = launches_b16[row["name"]]
         row["launches_batch_float32"] = launches_b32[row["name"]]
+        row["launches_sharded"] = sum(launches_sh[dt][row["name"]]
+                                      for dt in launches_sh)
         if row["name"] in batch_k:
             row["batch4"] = batch_k[row["name"]]
     kernels.append(nms_row(stopsign, launches_nms, build, people,
@@ -3578,7 +4093,8 @@ def main():
     print(json.dumps({"kernels": kernels, "steps": steps, "image": image,
                       "waterlevel": waterlevel, "batch": batch,
                       "stopsign": stopsign, "people": people,
-                      "training": training, "trainers": trainers}),
+                      "training": training, "trainers": trainers,
+                      "sharded": sharded}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

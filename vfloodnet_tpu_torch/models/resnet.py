@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -70,6 +71,35 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group's ranks, differentiable: the gradient
+    of each rank's input is the sum of every rank's output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def _group_moments(x: torch.Tensor, group):
+    """Mean and biased variance per channel of x [N, C, H, W] over (N, H,
+    W) of every rank's x in ``group`` (equal shapes), two passes as
+    ``var(unbiased=False)``, gradients flowing through both sums."""
+    count = x.numel() // x.shape[1] * dist.get_world_size(group)
+    mean = _AllReduceSum.apply(x.sum(dim=(0, 2, 3)), group) / count
+    d = x - mean[:, None, None]
+    var = _AllReduceSum.apply((d * d).sum(dim=(0, 2, 3)), group) / count
+    return mean, var
+
+
 class TrainBN(nn.Module):
     """The JAX package's ``FrozenBN`` as it trains: ``scale`` and ``bias``
     are parameters (AdamW trains them even with the BN frozen), ``mean``
@@ -85,6 +115,11 @@ class TrainBN(nn.Module):
     batch`` itself (:func:`vfloodnet_tpu_torch.train.train_video.
     video_clip_loss`); the buffers are never changed here.
 
+    With ``group`` set (a process group of more than one rank; the
+    data-parallel image trainer), live statistics are those of every
+    rank's batch together, as JAX's are over the global batch of a
+    data-sharded step.
+
     ``dtype`` None gives the output the input's dtype (the detector's
     BNs, which have no compute dtype of their own); ``eps`` is the JAX
     ``FrozenBN``'s (1e-3 in efficientnet-pytorch's encoder)."""
@@ -95,6 +130,7 @@ class TrainBN(nn.Module):
         self.dtype = dtype
         self.eps = eps
         self.live = False
+        self.group = None
         self.batch_mean = self.batch_var = None
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -104,8 +140,11 @@ class TrainBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = wide(x)
         if self.live:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            if self.group is None or dist.get_world_size(self.group) == 1:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = xf.var(dim=(0, 2, 3), unbiased=False)
+            else:
+                mean, var = _group_moments(xf, self.group)
             self.batch_mean, self.batch_var = mean.detach(), var.detach()
         else:
             mean, var = self.mean, self.var

@@ -307,15 +307,28 @@ class VideoSegEngine:
         cd = self.model.dtype   # the prep runs in the compute dtype
         frame_small = ops.resize(frame_u8.to(cd) / 255.0, small_hw,
                                  "bicubic", spatial_axes=(0, 1))
-        score, cnt = self.model.segment(frame_small[None], state.keys,
-                                        state.values, state.valid,
-                                        bank_occ=state.occ)
+        score, cnt = self._segment(state, frame_small)
         pred = torch.softmax(score, dim=1)[0]             # [obj, h, w]
         self.fb.record_usage(state, cnt)
         if update_bank:
-            k4, v4 = self.model.memorize(frame_small, pred)
-            self.fb.update_device(state, k4, v4, self._idx, occ_bound)
+            self._update_bank(state, frame_small, pred, occ_bound)
         return self._labels(pred, full_hw)
+
+    def _segment(self, state: FeatureBankState, frame_small: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The operating-size frame's object scores [1, obj, h, w] and the
+        bank's usage counts [obj, N]: the bank read."""
+        return self.model.segment(frame_small[None], state.keys,
+                                  state.values, state.valid,
+                                  bank_occ=state.occ)
+
+    def _update_bank(self, state: FeatureBankState,
+                     frame_small: torch.Tensor, pred: torch.Tensor,
+                     occ_bound: int) -> None:
+        """Memorize the frame under its probabilities ``pred`` and merge
+        its keys into the bank, or append them."""
+        k4, v4 = self.model.memorize(frame_small, pred)
+        self.fb.update_device(state, k4, v4, self._idx, occ_bound)
 
     def _labels(self, pred: torch.Tensor, full_hw
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -9,10 +9,16 @@ the optimiser's state, the step and the epoch, plus ``best.npz``, the
 weights in the JAX package's flat layout, which both packages' loaders
 read (``load_afb_urr``, ``load_linknet``). The video loop also snapshots
 the sources into the log directory; the image loop plots its curves.
+
+With a ``mesh`` (:mod:`.data_parallel`) every rank of the world runs the
+loop over the same global batches and takes the data-parallel step and
+its share of each validation batch; only rank 0 prints, logs and writes
+checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -24,6 +30,8 @@ from ..core.convert import (export_afb_urr_variables,
                             export_linknet_variables)
 from ..data import BatchLoader
 from ..utils import AvgMeter, MetricWriter, gct, save_scripts
+from .data_parallel import (broadcast_model, data_shard, is_writer,
+                            mean_over_data)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -36,6 +44,18 @@ def _save(path: str, model, opt, step: int, epoch: int) -> None:
     torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
                 "step": step, "epoch": epoch}, tmp)
     os.replace(tmp, path)
+
+
+class _NoMetrics:
+    """The metric log of a rank that does not write."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+
+def _metrics(log_dir: str, writer: bool):
+    return MetricWriter(log_dir) if writer else \
+        contextlib.nullcontext(_NoMetrics())
 
 
 def _resume(path: Optional[str], model, opt, steps_per_epoch: int) -> int:
@@ -54,26 +74,32 @@ def _resume(path: Optional[str], model, opt, steps_per_epoch: int) -> int:
 
 def run_video_training(model, cfg, dataset, log_dir: str,
                        batch_size: int = 1, resume: Optional[str] = None,
-                       log_every: int = 10) -> str:
+                       log_every: int = 10, mesh=None) -> str:
     """Train the training-form ``model`` (on its device) for ``cfg.epochs``
     epochs of ``dataset``, batches made on this thread; ``resume``, a
     ``final.pt`` or ``best.pt``, restores model, optimiser and step and
-    restarts at epoch ``step // steps_per_epoch``. Returns the path of
-    ``best.npz``."""
+    restarts at epoch ``step // steps_per_epoch``. With a ``mesh`` each
+    batch of ``batch_size`` clips is split over its data axis. Returns the
+    path of ``best.npz``."""
     from .train_video import init_video_train_state, make_video_train_step
 
+    writer = is_writer(mesh)
     os.makedirs(log_dir, exist_ok=True)
-    save_scripts(log_dir, _REPO)
+    if writer:
+        save_scripts(log_dir, _REPO)
     device = next(model.parameters()).device
     loader = BatchLoader(dataset, batch_size, shuffle=True, seed=cfg.seed)
     steps_per_epoch = max(len(loader), 1)
     opt = init_video_train_state(model, cfg, steps_per_epoch)
     start_epoch = _resume(resume, model, opt, steps_per_epoch)
-    step_fn = make_video_train_step(model, opt, cfg)
+    if mesh is not None:
+        broadcast_model(model, mesh)
+    step_fn = make_video_train_step(model, opt, cfg, mesh=mesh)
+    say = print if writer else (lambda *a: None)
 
     best_loss = float("inf")
     best_npz = os.path.join(log_dir, "best.npz")
-    with MetricWriter(log_dir) as metrics:
+    with _metrics(log_dir, writer) as metrics:
         for epoch in range(start_epoch, cfg.epochs):
             meter = AvgMeter()
             t0 = time.time()
@@ -82,15 +108,17 @@ def run_video_training(model, cfg, dataset, log_dir: str,
                                torch.from_numpy(masks).to(device))
                 meter.update(float(loss))
                 if bi % log_every == 0:
-                    print(gct(), f"epoch {epoch} step {bi}/{steps_per_epoch}"
-                          f" loss {meter.avg:.4f}")
+                    say(gct(), f"epoch {epoch} step {bi}/{steps_per_epoch}"
+                        f" loss {meter.avg:.4f}")
                     metrics.write("train", step=opt.count, loss=meter.avg,
                                   epoch=epoch)
             dt = time.time() - t0
-            print(gct(), f"epoch {epoch} done: loss {meter.avg:.4f} "
-                  f"({dt:.1f}s)")
+            say(gct(), f"epoch {epoch} done: loss {meter.avg:.4f} "
+                f"({dt:.1f}s)")
             metrics.write("epoch", step=opt.count, loss=meter.avg,
                           epoch=epoch, seconds=dt)
+            if not writer:
+                continue
             _save(os.path.join(log_dir, "final.pt"), model, opt, opt.count,
                   epoch)
             if meter.avg < best_loss:
@@ -104,16 +132,17 @@ def run_video_training(model, cfg, dataset, log_dir: str,
 
 def run_image_training(model, cfg, dataset, log_dir: str,
                        val_dataset=None, resume: Optional[str] = None,
-                       log_every: int = 10) -> str:
+                       log_every: int = 10, mesh=None) -> str:
     """Train the training-form LinkNet ``model`` (on its device) for
     ``cfg.epochs`` epochs of ``dataset``. With ``val_dataset``, a
     validation epoch (stored BN statistics, full batches only, as the
     JAX loop skips a short last one) follows each training epoch and
     ``best`` follows the validation IoU, else the training IoU;
-    ``resume`` as in :func:`run_video_training`. Writes ``curves.png``
-    where matplotlib is installed. Returns the path of ``best.npz``."""
-    from .train_image import (init_image_train_state, iou_metric,
-                              make_image_train_step)
+    ``resume`` and ``mesh`` as in :func:`run_video_training` (each
+    validation batch is split over the data axis too). Writes
+    ``curves.png`` where matplotlib is installed. Returns the path of
+    ``best.npz``."""
+    from .train_image import init_image_train_state, make_image_train_step
 
     os.makedirs(log_dir, exist_ok=True)
     device = next(model.parameters()).device
@@ -122,7 +151,11 @@ def run_image_training(model, cfg, dataset, log_dir: str,
     steps_per_epoch = max(len(loader), 1)
     opt = init_image_train_state(model, cfg, steps_per_epoch)
     start_epoch = _resume(resume, model, opt, steps_per_epoch)
-    step_fn = make_image_train_step(model, opt, cfg.update_bn)
+    if mesh is not None:
+        broadcast_model(model, mesh)
+    step_fn = make_image_train_step(model, opt, cfg.update_bn, mesh=mesh)
+    writer = is_writer(mesh)
+    say = print if writer else (lambda *a: None)
     val_loader = None if val_dataset is None else BatchLoader(
         val_dataset, cfg.batch_size, shuffle=False, seed=cfg.seed,
         drop_last=False)
@@ -133,7 +166,7 @@ def run_image_training(model, cfg, dataset, log_dir: str,
     history = []
     best_iou = -1.0
     best_npz = os.path.join(log_dir, "best.npz")
-    with MetricWriter(log_dir) as metrics:
+    with _metrics(log_dir, writer) as metrics:
         for epoch in range(start_epoch, cfg.epochs):
             loss_m, iou_m = AvgMeter(), AvgMeter()
             for bi, (images, masks) in enumerate(loader.epoch(epoch)):
@@ -141,26 +174,22 @@ def run_image_training(model, cfg, dataset, log_dir: str,
                 loss_m.update(float(loss))
                 iou_m.update(float(iou))
                 if bi % log_every == 0:
-                    print(gct(), f"epoch {epoch} step {bi}/"
-                          f"{steps_per_epoch} dice {loss_m.avg:.4f} "
-                          f"iou {iou_m.avg:.4f}")
+                    say(gct(), f"epoch {epoch} step {bi}/"
+                        f"{steps_per_epoch} dice {loss_m.avg:.4f} "
+                        f"iou {iou_m.avg:.4f}")
             select_iou = iou_m.avg
             if val_loader is not None:
-                val_m = AvgMeter()
-                with torch.no_grad():
-                    for images, masks in val_loader.epoch(0):
-                        if images.shape[0] != cfg.batch_size:
-                            continue
-                        prob = model(upload(images))[..., 0]
-                        val_m.update(float(iou_metric(prob, upload(masks))))
-                select_iou = val_m.avg
-                print(gct(), f"epoch {epoch}: val iou {val_m.avg:.4f}")
+                select_iou = _val_iou(model, val_loader, cfg.batch_size,
+                                      upload, mesh)
+                say(gct(), f"epoch {epoch}: val iou {select_iou:.4f}")
             history.append((loss_m.avg, iou_m.avg))
-            print(gct(), f"epoch {epoch}: dice {loss_m.avg:.4f} "
-                  f"iou {iou_m.avg:.4f}")
+            say(gct(), f"epoch {epoch}: dice {loss_m.avg:.4f} "
+                f"iou {iou_m.avg:.4f}")
             metrics.write("epoch", step=opt.count, epoch=epoch,
                           dice=loss_m.avg, iou=iou_m.avg,
                           select_iou=select_iou)
+            if not writer:
+                continue
             _save(os.path.join(log_dir, "final.pt"), model, opt, opt.count,
                   epoch)
             if select_iou > best_iou:
@@ -169,8 +198,33 @@ def run_image_training(model, cfg, dataset, log_dir: str,
                       opt.count, epoch)
                 save_flat_npz(best_npz,
                               export_linknet_variables(model.state_dict()))
-    _plot_curves(history, log_dir)
+    if writer:
+        _plot_curves(history, log_dir)
     return best_npz
+
+
+@torch.no_grad()
+def _val_iou(model, loader, batch_size: int, upload, mesh) -> float:
+    """The mean of the batches' IoUs over the full batches of ``loader``,
+    under the stored BN statistics. With a ``mesh`` every rank computes
+    its share of each batch, as the step splits it, and the shares' IoUs
+    are averaged over the data group, in one all-reduce."""
+    from .train_image import iou_metric
+
+    ious = []
+    for images, masks in loader.epoch(0):
+        if images.shape[0] != batch_size:
+            continue
+        images, masks = upload(images), upload(masks)
+        if mesh is not None:
+            images, masks = data_shard(images, mesh), data_shard(masks, mesh)
+        ious.append(iou_metric(model(images)[..., 0], masks))
+    if mesh is not None and ious:
+        ious = mean_over_data([torch.stack(ious)], mesh)[0]
+    meter = AvgMeter()
+    for iou in ious:
+        meter.update(float(iou))
+    return meter.avg
 
 
 def _plot_curves(history, log_dir: str) -> None:

@@ -10,8 +10,9 @@ the weight bridge's ``trainable_bn``); the optimiser is
 ``optax.adam``'s arithmetic.
 
 Run ``python -m vfloodnet_tpu_torch.train.train_image --dataset ROOT
-[--device cpu]`` (the flags of the root ``train_image_seg.py`` but
-``--data-parallel``).
+[--device cpu] [--data-parallel]`` (the flags of the root
+``train_image_seg.py``; ``--data-parallel`` starts one rank per GPU,
+:mod:`.data_parallel`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import torch.nn as nn
 from ..core import resolve_device
 from ..models import LinkNet
 from ..models.resnet import TrainBN
+from .data_parallel import (average_grads, check_training_mesh, data_shard,
+                            mean_over_data)
 from .train_video import AdamWClip, _pass_stats, _variance_scaling_, \
     batch_norms
 
@@ -91,26 +94,42 @@ def init_image_train_state(model: LinkNet, cfg: ImageTrainConfig,
 
 
 def make_image_train_step(model: LinkNet, opt: AdamWClip,
-                          update_bn: bool = False) -> Callable:
+                          update_bn: bool = False, mesh=None) -> Callable:
     """``step(images [B, H, W, 3] in [0, 1], masks [B, H, W] in {0, 1})
     -> (dice loss, IoU)``, both detached 0-d tensors of the forward before
     the update: the loss's gradients, one optimiser update and, with
     ``update_bn``, the BNs normalising with the whole batch's statistics
     and their running statistics set to ``0.9 * stat + 0.1 * batch``. The
-    BNs are left frozen afterwards."""
+    BNs are left frozen afterwards.
+
+    With a ``mesh`` (:mod:`.data_parallel`) every rank of its data axis
+    calls the step with the same global batch and computes its contiguous
+    share of the images; live statistics are the global batch's (the BNs
+    all-reduce their sums over the data group), and the gradients, the
+    loss and the IoU are averaged over it, so every rank takes the global
+    batch's step."""
     bns = batch_norms(model)
+    group = None
+    if mesh is not None:
+        check_training_mesh(mesh)
+        group = mesh.data_group
 
     def step(images: torch.Tensor, masks: torch.Tensor):
+        if mesh is not None:
+            images, masks = data_shard(images, mesh), data_shard(masks, mesh)
         for p in opt.params.values():
             p.grad = None
         for bn in bns:
-            bn.live = update_bn
+            bn.live, bn.group = update_bn, group
             bn.batch_mean = bn.batch_var = None
         prob = model(images)[..., 0]
         loss = dice_loss(prob, masks)
         iou = iou_metric(prob.detach(), masks)
         stats = _pass_stats(bns) if update_bn else None
         loss.backward()
+        if mesh is not None:
+            average_grads(opt.params.values(), mesh)
+            loss, iou = mean_over_data([loss, iou], mesh)
         opt.step()
         with torch.no_grad():
             for i, bn in enumerate(bns):
@@ -157,27 +176,24 @@ def _args():
                    help="A final.pt or best.pt of an earlier run")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' or 'cpu'.")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="Split each batch over one rank per visible GPU "
+                        "(NCCL; with --device cpu, two gloo processes)")
     return p.parse_args()
 
 
-def main() -> None:
+def _train(mesh, device, args) -> str:
+    """One rank's run of the CLI (``mesh`` None: the only one)."""
     from ..data import WaterImageDataset
-    from ..utils import gct
     from .loops import run_image_training
 
-    args = _args()
-    print(gct(), "Args =", args)
-    if args.encoder != "efficientnet-b4":
-        raise NotImplementedError(f"encoder {args.encoder}")
-    if torch.device(args.device).type == "cuda":
+    if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True   # exact resume
     cfg = ImageTrainConfig(lr=args.lr, epochs=args.epochs,
                            batch_size=args.batch_size,
                            input_size=args.input_size, seed=args.seed)
-    log_dir = args.log or os.path.join(
-        "logs", time.strftime("%Y%m%d-%H%M%S") + "_image_seg")
     dataset = WaterImageDataset("train_offline", args.dataset,
                                 input_size=cfg.input_size, seed=cfg.seed)
     val_dataset = None
@@ -186,9 +202,27 @@ def main() -> None:
                                         input_size=cfg.input_size,
                                         dataset_file="val_imgs.txt",
                                         seed=cfg.seed)
-    model = init_linknet(cfg.seed, args.device)
-    best = run_image_training(model, cfg, dataset, log_dir,
-                              val_dataset=val_dataset, resume=args.resume)
+    model = init_linknet(cfg.seed, device)
+    return run_image_training(model, cfg, dataset, args.log,
+                              val_dataset=val_dataset, resume=args.resume,
+                              mesh=mesh)
+
+
+def main() -> None:
+    from ..utils import gct
+    from .data_parallel import spawn_ranks
+
+    args = _args()
+    print(gct(), "Args =", args)
+    if args.encoder != "efficientnet-b4":
+        raise NotImplementedError(f"encoder {args.encoder}")
+    args.log = args.log or os.path.join(
+        "logs", time.strftime("%Y%m%d-%H%M%S") + "_image_seg")
+    if args.data_parallel:
+        spawn_ranks(_train, (args,), args.device, args.log)
+        best = os.path.join(args.log, "best.npz")
+    else:
+        best = _train(None, resolve_device(args.device), args)
     print(gct(), f"Training done. Best checkpoint: {best}")
 
 

@@ -14,8 +14,9 @@ inference. The optimiser is written out to give optax's numbers
 (:class:`AdamWClip`); the schedule counts optimiser steps as optax's does.
 
 Run ``python -m vfloodnet_tpu_torch.train.train_video --dataset ROOT
-[--device cpu]`` (the flags of the root ``train_video_seg.py`` but
-``--data-parallel``).
+[--device cpu] [--data-parallel]`` (the flags of the root
+``train_video_seg.py``; ``--data-parallel`` starts one rank per GPU,
+:mod:`.data_parallel`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import resolve_device
 from ..models import AFBURR
 from ..models.resnet import TrainBN
+from .data_parallel import (average_grads, check_training_mesh, data_shard,
+                            mean_over_data)
 
 BN_MOMENTUM = 0.9
 
@@ -244,20 +247,35 @@ def init_video_train_state(model: AFBURR, cfg: VideoTrainConfig,
 
 
 def make_video_train_step(model: AFBURR, opt: AdamWClip,
-                          cfg: VideoTrainConfig) -> Callable:
+                          cfg: VideoTrainConfig, mesh=None) -> Callable:
     """``step(frames, masks) -> loss`` (a detached 0-d tensor on the
     model's device): the loss and its gradients, one optimiser update, and
     with ``update_bn`` the running statistics written back. The BNs are
-    left frozen afterwards."""
+    left frozen afterwards.
+
+    With a ``mesh`` (:mod:`.data_parallel`) every rank of its data axis
+    calls the step with the same global batch and computes its contiguous
+    share of the clips; the gradients, the loss and the running statistics
+    (per clip, as without a mesh) are averaged over the data group, so
+    every rank takes the global batch's step."""
     bns = batch_norms(model)
+    if mesh is not None:
+        check_training_mesh(mesh)
 
     def step(frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            frames, masks = data_shard(frames, mesh), data_shard(masks, mesh)
         for p in opt.params.values():
             p.grad = None
         loss, stats = video_clip_loss(model, frames, masks, cfg.lambda_u,
                                       remat=cfg.remat,
                                       update_bn=cfg.update_bn)
         loss.backward()
+        if mesh is not None:
+            average_grads(opt.params.values(), mesh)
+            loss, = mean_over_data([loss], mesh)
+            if stats is not None:
+                stats = mean_over_data(stats, mesh)
         opt.step()
         with torch.no_grad():
             for i, bn in enumerate(bns):
@@ -330,17 +348,18 @@ def _args():
                         "than one clip, more work)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' or 'cpu'.")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="Split each batch over one rank per visible GPU "
+                        "(NCCL; with --device cpu, two gloo processes)")
     return p.parse_args()
 
 
-def main() -> None:
+def _train(mesh, device, args) -> str:
+    """One rank's run of the CLI (``mesh`` None: the only one)."""
     from ..data import WaterVideoTrainDataset
-    from ..utils import gct
     from .loops import run_video_training
 
-    args = _args()
-    print(gct(), "Args =", args)
-    if torch.device(args.device).type == "cuda":
+    if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True   # exact resume
@@ -349,14 +368,28 @@ def main() -> None:
         scheduler_step_epochs=args.scheduler_step, epochs=args.total_epochs,
         clip_n=args.clip_n, max_obj_n=args.obj_n,
         output_size=args.output_size, seed=args.seed, remat=args.remat)
-    log_dir = args.log or os.path.join(
-        "logs", time.strftime("%Y%m%d-%H%M%S") + "_video_seg")
     dataset = WaterVideoTrainDataset(
         args.dataset, output_size=cfg.output_size, clip_n=cfg.clip_n,
         max_obj_n=cfg.max_obj_n, seed=cfg.seed)
-    model = init_afb_urr(cfg.seed, args.device)
-    best = run_video_training(model, cfg, dataset, log_dir,
-                              batch_size=args.batch_size, resume=args.resume)
+    model = init_afb_urr(cfg.seed, device)
+    return run_video_training(model, cfg, dataset, args.log,
+                              batch_size=args.batch_size, resume=args.resume,
+                              mesh=mesh)
+
+
+def main() -> None:
+    from ..utils import gct
+    from .data_parallel import spawn_ranks
+
+    args = _args()
+    print(gct(), "Args =", args)
+    args.log = args.log or os.path.join(
+        "logs", time.strftime("%Y%m%d-%H%M%S") + "_video_seg")
+    if args.data_parallel:
+        spawn_ranks(_train, (args,), args.device, args.log)
+        best = os.path.join(args.log, "best.npz")
+    else:
+        best = _train(None, resolve_device(args.device), args)
     print(gct(), f"Training done. Best checkpoint: {best}")
 
 

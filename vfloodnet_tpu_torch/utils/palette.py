@@ -1,13 +1,17 @@
 """Indexed-PNG masks with the reference palette (water = label 1), frame
-reading, and mask overlays. PIL is imported inside the functions that read
-or write files, so the package imports where PIL is absent; the overlay
-itself is numpy."""
+reading, and mask overlays. Masks are written and read by
+:mod:`..native` (numpy and ``zlib``), so they need no PIL; PIL is imported
+inside the functions that decode frames, write overlays or read a PNG
+that is not an 8-bit palette or grey image, so the package imports where
+PIL is absent; the overlay itself is numpy."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+
+from .. import native
 
 # Same palette as the reference (myutils/data.py:14): background black,
 # water navy, then green / red, grey filler.
@@ -16,11 +20,10 @@ COLOR_PALETTE = [0, 0, 0, 0, 0, 128, 0, 128, 0, 128, 0, 0] + [100, 100, 100] * 2
 
 def save_seg_mask(pred: np.ndarray, seg_path: str,
                   palette: Sequence[int] = COLOR_PALETTE) -> None:
-    """Write uint8 labels as an indexed PNG with the palette."""
-    from PIL import Image
-    img = Image.fromarray(np.asarray(pred, dtype=np.uint8), mode="P")
-    img.putpalette(list(palette))
-    img.save(seg_path)
+    """Write uint8 labels as an indexed PNG with the palette
+    (:func:`..native.write_palette_png`)."""
+    native.write_palette_png(seg_path, np.asarray(pred, dtype=np.uint8),
+                             palette)
 
 
 def load_image(path: str) -> np.ndarray:
@@ -31,7 +34,14 @@ def load_image(path: str) -> np.ndarray:
 
 
 def load_mask(path: str) -> np.ndarray:
-    """Read an indexed-PNG mask as uint8 labels [H, W]."""
+    """Read an indexed-PNG mask as uint8 labels [H, W]: an 8-bit palette
+    or grey PNG through :func:`..native.read_palette_png`, another file
+    (a JPEG, an RGB PNG) through PIL, converted to a palette image."""
+    if path.endswith(".png"):
+        try:
+            return native.read_palette_png(path)
+        except native.UnsupportedPNG:
+            pass
     from PIL import Image
     with Image.open(path) as img:
         return np.asarray(img.convert("P") if img.mode not in ("P", "L")
