@@ -221,6 +221,22 @@ Phases, each printing one line with its elapsed seconds:
    for bit over 3 steps, frozen and live BN; (d) a 1080p mask through the
    port's PNG writer and reader (no PIL on this machine), read back equal,
    ms of each.
+18. the Atlantis evaluation, the RGB PNG writer and the video trainer's
+   model axis: (a) the full-width PSPNet (56 classes, seeded weights written
+   as the JAX package's flat npz and read by ``load_pspnet``, float32, TF32
+   off) at the 768-px padding: the forward's ms (CUDA events, median of
+   10) and peak memory, the harness's ms an image (``AtlantisEvaluator``:
+   pad, forward, upsample, argmax, water map; host clock, median of 5) at
+   540 x 720 and 1080 x 1920, card against CPU on a 256-px image (the
+   timed evaluator's model's logits within 1e-4 of their scale; its
+   ``predict``'s labels and a CPU evaluator's >= 0.999 equal) and the
+   bf16 forward's labels against the float32 ones (printed); (b) a 1080p
+   water overlay through ``native.write_rgb_png``, decoded back equal, ms a
+   write; (c) ``shard_train_state`` and the model-axis step on a world of
+   one over NCCL (mesh (1, 1)) against the plain step, three steps with
+   live BN on two 240-px clips, cuDNN deterministic: losses, state and
+   AdamW moments equal bit for bit, ms a step (m > 1 needs a rank a
+   device: CPU ranks only).
 
 Then one JSON line of the kernels' numbers (with the step times of
 phase 5, the image path's and the water-level phase's beside them, and
@@ -230,7 +246,8 @@ phase 12(b) and (c) as ``launches_batch`` and
 batch phases' under ``batch``, phase 13's under ``stopsign``, phase 14's
 under ``people``, phase 15's under ``training``, phase 16's under
 ``trainers``, phase 17's under ``sharded``, and each kernel's launches in
-phase 17(a)'s float32 and bf16 runs together as ``launches_sharded``; the
+phase 17(a)'s float32 and bf16 runs together as ``launches_sharded``,
+phase 18's under ``atlantis``; the
 NMS kernel's row
 counts its launches an image, the people detector's under ``people``)
 and, last,
@@ -319,7 +336,15 @@ from vfloodnet_tpu_torch.parallel import (close_world, init_local_world,
                                           make_mesh, sharded_read)
 from vfloodnet_tpu_torch.pipelines.video_seg_sharded import \
     ShardedVideoSegEngine
-from vfloodnet_tpu_torch.utils import COLOR_PALETTE
+from vfloodnet_tpu_torch.utils import COLOR_PALETTE, add_overlay
+from vfloodnet_tpu_torch.core.convert import export_pspnet_variables
+from vfloodnet_tpu_torch.models.linknet import IMAGENET_MEAN, IMAGENET_STD
+from vfloodnet_tpu_torch.models.pspnet import PSPNet
+from vfloodnet_tpu_torch.models.pspnet import seeded_init as seeded_psp_init
+from vfloodnet_tpu_torch.pipelines.atlantis import AtlantisEvaluator
+from vfloodnet_tpu_torch.pipelines.loaders import load_pspnet
+from vfloodnet_tpu_torch.train import (gather_train_state,
+                                       shard_train_state)
 
 T0 = time.perf_counter()
 P, DK, DV, N, OBJ = 1620, 128, 512, 98304, 2
@@ -3988,6 +4013,210 @@ def sharded_phase(model, model16, gap, replay_ms):
     return res, launches
 
 
+# --------------------------------------------------------------------------
+# phase 18: the Atlantis PSPNet, the RGB PNG writer, the model axis
+# --------------------------------------------------------------------------
+
+ATLANTIS_PAD = 768
+
+
+def _pspnet_npz(path, seed):
+    """Seeded full-width PSPNet weights written as the JAX package's flat
+    variables (through ``export_pspnet_variables``), for
+    ``load_pspnet``."""
+    form = seeded_psp_init(PSPNet(norm=TrainBN), seed)
+    save_flat_npz(path, export_pspnet_variables(form.state_dict()))
+
+
+def _atlantis_image(h, w, seed):
+    """A float32 [h, w, 3] image in [0, 1]: sky over a wavy waterline."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32) / max(h, w)
+    water = yy + 0.05 * np.sin(11 * xx) > 0.4
+    img = np.where(water[..., None], rng.uniform(0.1, 0.4, 3),
+                   rng.uniform(0.5, 0.9, 3))
+    return np.clip(img + 0.05 * rng.standard_normal(img.shape), 0,
+                   1).astype(np.float32)
+
+
+def _normalised(img, dev):
+    """A float32 [H, W, 3] image as the harness feeds PSPNet: [1, 3, H, W]
+    on ``dev``, less the ImageNet mean, over its std."""
+    x = torch.from_numpy(img).to(dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    return ((x - mean) / std).permute(2, 0, 1)[None]
+
+
+def pspnet_phase():
+    """18(a): the Atlantis harness (``pipelines/atlantis.py``) with the
+    full-width PSPNet (56 classes, seeded weights through the flat npz and
+    ``load_pspnet``, float32, TF32 off) at the 768-px padding. Records the
+    forward's ms (CUDA events, median of 10 after a warm call) and peak
+    memory, the harness's ms an image (host clock around pad, upload,
+    forward, upsample, argmax, download and water map; median of 5, no
+    decode, no PNG) for a 540 x 720 image and for a 1080 x 1920 one (shrunk
+    on the host first), card against CPU on the same weights for a 256-px
+    image (the timed evaluator's model's logits within 1e-4 of their
+    scale; the labels of its ``predict`` and of a CPU evaluator's, both
+    padding to 768, >= 0.999 equal) and the bf16 forward's labels against
+    the float32 ones at 768 (printed)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pspnet.npz")
+        _pspnet_npz(path, SEED + 21)
+        model = load_pspnet(path, device=DEV)
+        cpu = load_pspnet(path, device="cpu")
+        model16 = load_pspnet(path, device=DEV, dtype=torch.bfloat16)
+    x = _normalised(_atlantis_image(ATLANTIS_PAD, ATLANTIS_PAD, SEED + 22),
+                    DEV)
+    with torch.no_grad():
+        aux, logits = model(x)
+        check(logits.shape == (1, 56, 96, 96) and aux.shape == logits.shape
+              and bool(torch.isfinite(logits).all()),
+              f"PSPNet logits at 1/8 of 768: {tuple(logits.shape)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_ms = time_ms(lambda: model(x))
+        peak = torch.cuda.max_memory_allocated() - base
+    res = {"forward_ms": fwd_ms, "forward_peak_bytes": int(peak)}
+    evaluator = AtlantisEvaluator(model, ATLANTIS_PAD)
+    for name, hw in (("540x720", (540, 720)), ("1080x1920", (1080, 1920))):
+        img = _atlantis_image(*hw, SEED + 23)
+        times = []
+        for _ in range(6):
+            t = time.perf_counter()
+            pred, shown = evaluator.predict(img)
+            water = evaluator.water(pred)
+            times.append(1e3 * (time.perf_counter() - t))
+        check(pred.shape == shown.shape[:2] == water.shape and
+              pred.dtype == np.uint8, f"{name}: labels of the image's size")
+        res[f"harness_ms_{name}"] = float(np.median(times[1:]))
+        res[f"water_share_{name}"] = float(water.mean())
+    # card against CPU, same weights: the timed evaluator's model's
+    # logits of a 256-px image, then the labels that the timed evaluator
+    # and a CPU one predict for it (each pads it to 768)
+    small = _atlantis_image(256, 256, SEED + 24)
+    cpu_evaluator = AtlantisEvaluator(cpu, ATLANTIS_PAD)
+    with torch.no_grad():
+        card_lg, cpu_lg = [ev.model(_normalised(small, ev.device))[1].cpu()
+                           for ev in (evaluator, cpu_evaluator)]
+    card_lab, cpu_lab = (ev.predict(small)[0]
+                         for ev in (evaluator, cpu_evaluator))
+    scale = cpu_lg.abs().max().item()
+    err = (card_lg - cpu_lg).abs().max().item()
+    agree = float((card_lab == cpu_lab).mean())
+    check(err <= 1e-4 * scale, f"PSPNet card vs CPU at 256 px: logits "
+          f"{err:.3g} apart at scale {scale:.3g}")
+    check(card_lab.shape == cpu_lab.shape == (256, 256) and agree >= 0.999,
+          f"the harness's labels on the card vs the CPU agree {agree:.6f}")
+    res["card_vs_cpu"] = {"max_abs_err": err, "scale": scale,
+                          "label_agreement": agree}
+    # bf16 against float32 on the card, the harness's labels at 768
+    img = _atlantis_image(540, 720, SEED + 23)
+    labels32 = evaluator.predict(img)[0]
+    labels16 = AtlantisEvaluator(model16, ATLANTIS_PAD).predict(img)[0]
+    res["bf16_vs_float32_labels"] = float((labels16 == labels32).mean())
+    log("atlantis", f"PSPNet 768 px float32 forward {fwd_ms:.2f} ms, peak "
+        f"{peak / 2**30:.2f} GiB; harness {res['harness_ms_540x720']:.2f} "
+        f"ms an image at 540 x 720, {res['harness_ms_1080x1920']:.2f} at "
+        f"1080 x 1920 (host clock, median of 5); card vs CPU at 256 px: "
+        f"logits {err:.3g} at scale {scale:.3g}, labels {agree:.6f}; bf16 "
+        f"vs float32 labels {res['bf16_vs_float32_labels']:.6f}")
+    del model, model16, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def rgb_png_phase():
+    """18(b): a 1080p water overlay (``add_overlay``) through the RGB PNG
+    writer (no PIL on this machine), decoded back equal by
+    ``native.read_rgb_png``; ms a write (median of 3, host clock)."""
+    rng = np.random.RandomState(SEED + 25)
+    bgr = (rng.rand(*FRAME_HW, 3) * 255).astype(np.uint8)
+    mask = np.zeros(FRAME_HW, np.uint8)
+    mask[FRAME_HW[0] // 2:] = 1
+    overlay = add_overlay(bgr, mask)[..., ::-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "water.png")
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            native.write_rgb_png(path, overlay)
+            times.append(1e3 * (time.perf_counter() - t))
+        check(np.array_equal(native.read_rgb_png(path), overlay),
+              "the 1080p RGB overlay decodes back equal")
+        size = os.path.getsize(path)
+    res = {"write_ms": float(np.median(times)), "bytes": size}
+    log("atlantis", f"1080p RGB overlay PNG: write {res['write_ms']:.2f} ms "
+        f"(median of 3, host clock), {size} bytes, decodes back equal")
+    return res
+
+
+def model_axis_phase():
+    """18(c): the video trainer's model-axis step on a world of one over
+    NCCL (mesh (1, 1): ``shard_train_state``, column-parallel convolutions
+    over a model group of one) against the plain step, one step from the
+    bundled trained weights with live BN on two 240-px clips, three steps
+    each, cuDNN deterministic: the losses, every state tensor (gathered)
+    and the AdamW moments equal bit for bit; ms a step, the median of steps
+    2-3 (CUDA events). NCCL takes
+    one rank a device, so m = 2 runs only on CPU ranks
+    (tests/test_torch_train_tp.py)."""
+    variables = load_flat_npz(default_checkpoint("video"))
+    clips = [torch.from_numpy(x).to(DEV)
+             for x in training_clips(2, 3, 2, 240, SEED + 26)]
+    init_local_world(DEV)
+    try:
+        mesh = make_mesh((1, 1))
+        runs = []
+        with cudnn_deterministic():
+            for use_mesh in (None, mesh):
+                model = training_form(variables, DEV)
+                cfg = _train_cfg(update_bn=True)
+                opt = init_video_train_state(model, cfg)
+                if use_mesh is not None:
+                    shard_train_state(model, opt, use_mesh)
+                step = make_video_train_step(model, opt, cfg, mesh=use_mesh)
+                ms, _, losses = timed_steps(step, [clips] * 3, warm=1)
+                state, opt_state = gather_train_state(model, opt)
+                runs.append((torch.stack(losses), state, opt_state, ms,
+                             len(opt.sharded)))
+                del model, opt, step
+    finally:
+        close_world()
+    (loss, state, opt_state, ms, _), (tp_loss, tp_state, tp_opt, tp_ms,
+                                      n_sharded) = runs
+    check(n_sharded == sum(t.ndim == 4 for t in state.values()),
+          f"mesh (1, 1) shards every conv kernel ({n_sharded})")
+    bad = [k for k in state if not torch.equal(state[k], tp_state[k])]
+    bad += [f"{k}.{n}" for k in ("mu", "nu") for n in opt_state[k]
+            if not torch.equal(opt_state[k][n], tp_opt[k][n])]
+    check(torch.equal(loss, tp_loss) and not bad,
+          f"the model-axis steps at mesh (1, 1) equal the plain steps bit "
+          f"for bit (losses {loss.tolist()} vs {tp_loss.tolist()}; "
+          f"{len(bad)} tensors differ: {bad[:6]})")
+    res = {"plain_ms": ms, "model_axis_ms": tp_ms, "losses": loss.tolist(),
+           "sharded_kernels": n_sharded}
+    log("atlantis", f"model-axis video step at mesh (1, 1) equals the plain "
+        f"step bit for bit over 3 steps ({n_sharded} kernels sharded); ms "
+        f"a step {tp_ms:.2f} (plain {ms:.2f}; medians of steps 2-3, CUDA "
+        f"events)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def atlantis_phase():
+    """Phase 18: (a) the Atlantis PSPNet, (b) the RGB PNG writer, (c) the
+    video trainer's model axis on one card."""
+    t0 = time.perf_counter()
+    res = {"pspnet": pspnet_phase(), "rgb_png": rgb_png_phase(),
+           "model_axis": model_axis_phase()}
+    res["seconds"] = time.perf_counter() - t0
+    log("atlantis", f"phase 18 took {res['seconds']:.1f} s")
+    return res
+
+
 def bf16_model(model):
     """An ``AFBURR(dtype=torch.bfloat16)`` with the weights of ``model``,
     which is left as it was."""
@@ -4076,6 +4305,7 @@ def main():
     sharded, launches_sh = sharded_phase(
         model, model16, gaps[1],
         {k: v[0]["graph_ms"] for k, v in steps.items()})
+    atlantis = atlantis_phase()
     kernels = kernel_rows(errs, timing, launches, build, errs16, timing16,
                           launches16)
     kernels.append(cc_row(cc_timing, launches, launches16))
@@ -4094,7 +4324,7 @@ def main():
                       "waterlevel": waterlevel, "batch": batch,
                       "stopsign": stopsign, "people": people,
                       "training": training, "trainers": trainers,
-                      "sharded": sharded}),
+                      "sharded": sharded, "atlantis": atlantis}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,9 @@ def test_package_imports_without_cuda_or_nvcc():
     code = ("import sys, torch\n"
             "assert not torch.cuda.is_available()\n"
             "import vfloodnet_tpu_torch.pipelines, vfloodnet_tpu_torch.ops\n"
+            "import vfloodnet_tpu_torch.pipelines.atlantis\n"
+            "import vfloodnet_tpu_torch.utils.visualize\n"
+            "import vfloodnet_tpu_torch.train.model_parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + LAZY!r}]\n"
             "assert not bad, bad\n")

@@ -23,11 +23,12 @@ import pytest
 import torch
 
 from torch_image_train_common import image_batch
-from torch_parallel_ranks import dp_rank, image_steps, spawn, video_steps
+from torch_parallel_ranks import (dp_rank, image_steps, one_thread, spawn,
+                                  video_steps)
 from torch_train_common import make_clips
 from vfloodnet_tpu_torch.parallel import Mesh
-from vfloodnet_tpu_torch.train.data_parallel import (check_training_mesh,
-                                                     data_shard)
+from vfloodnet_tpu_torch.train import train_video
+from vfloodnet_tpu_torch.train.data_parallel import data_shard
 
 torch.set_num_threads(4)
 CASES = [("video", False, 1), ("video", True, 1), ("image", False, 1),
@@ -36,6 +37,12 @@ CASES = [("video", False, 1), ("video", True, 1), ("image", False, 1),
 
 def _inputs(kind):
     return make_clips() if kind == "video" else image_batch()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +98,9 @@ def test_live_statistics_moved(runs):
 
 def test_batch_split_and_model_axis():
     """The batch is split contiguously over the data axis and must
-    divide; a model axis > 1 raises."""
+    divide; the ranks of a model axis take the same share, and the video
+    step over a model axis > 1 needs the sharded layout
+    (tests/test_torch_train_tp.py runs it)."""
     layout = np.arange(4).reshape(4, 1)
     meshes = [Mesh((4, 1), r, (r, 0), layout, (None, None),
                    torch.device("cpu")) for r in range(4)]
@@ -99,8 +108,14 @@ def test_batch_split_and_model_axis():
     assert torch.equal(torch.cat([data_shard(x, m) for m in meshes]), x)
     with pytest.raises(ValueError):
         data_shard(torch.arange(6), meshes[0])
-    check_training_mesh(meshes[0])
-    with pytest.raises(NotImplementedError):
-        check_training_mesh(Mesh((2, 2), 0, (0, 0),
-                                 np.arange(4).reshape(2, 2), (None, None),
-                                 torch.device("cpu")))
+    layout = np.arange(4).reshape(2, 2)
+    square = [Mesh((2, 2), r, (r // 2, r % 2), layout, (None, None),
+                   torch.device("cpu")) for r in range(4)]
+    assert torch.equal(data_shard(x, square[0]), data_shard(x, square[1]))
+    assert torch.equal(torch.cat([data_shard(x, m) for m in square[::2]]),
+                       x)
+    cfg = train_video.VideoTrainConfig()
+    opt = train_video.AdamWClip({}, lambda count: 0.0, 0.0)
+    with pytest.raises(ValueError):
+        train_video.make_video_train_step(torch.nn.Module(), opt, cfg,
+                                          mesh=square[0])

@@ -5,6 +5,7 @@ ranks (``torch.multiprocessing``, a ``FileStore`` in ``tmp``), runs
 order. This module imports no JAX: every rank imports it, and the JAX
 references are computed in the test process."""
 
+import contextlib
 import os
 
 import numpy as np
@@ -14,8 +15,9 @@ import torch.multiprocessing as mp
 from vfloodnet_tpu_torch.parallel import close_world, init_rank
 
 
-def _entry(rank, fn, world, store, out, args):
+def _entry(rank, fn, world, store, out, args_path):
     torch.set_num_threads(1)
+    args = torch.load(args_path, weights_only=False)
     init_rank(store, rank, world, "cpu")
     try:
         torch.save(fn(rank, world, *args), f"{out}_{rank}.pt")
@@ -30,18 +32,39 @@ def spawn(fn, world, tmp, *args, wait=True):
     os.makedirs(tmp, exist_ok=True)
     store = os.path.join(tmp, f"store_{fn.__name__}_{world}")
     out = os.path.join(tmp, f"out_{fn.__name__}_{world}")
-    ctx = mp.spawn(_entry, args=(fn, world, store, out, args), nprocs=world,
-                   join=False)
+    # the arguments go through a file: a spawned process reads its pickle
+    # from a pipe only once it has imported torch, and a pickle larger
+    # than the pipe's buffer would hold the caller until then, one rank
+    # after another
+    args_path = f"{out}_args.pt"
+    torch.save(args, args_path)
+    ctx = mp.spawn(_entry, args=(fn, world, store, out, args_path),
+                   nprocs=world, join=False)
 
     def results():
         while not ctx.join():
             pass
+        os.remove(args_path)
         got = []
         for r in range(world):   # loaded, then removed: they may be large
             got.append(torch.load(f"{out}_{r}.pt", weights_only=False))
             os.remove(f"{out}_{r}.pt")
         return got
     return results() if wait else results
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread inside, as in the ranks (restored after): a
+    test's own steps run beside its ranks, and on a host whose cores are
+    oversubscribed (xdist's other workers) each op's wait for all of
+    torch's threads stalls the steps many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def shard(x, rank, world, axis=1):
@@ -238,7 +261,6 @@ def dp_rank(rank, world, cases):
     world's data axis; rank 0 returns its gradients and state, every rank
     the hash of its state."""
     from vfloodnet_tpu_torch.parallel import make_mesh
-    torch.set_num_threads(2)
     mesh = make_mesh()
     return [(video_steps if kind == "video" else image_steps)(
         mesh, *args, full=rank == 0) for kind, *args in cases]
@@ -290,3 +312,108 @@ def loop_rank(rank, world, log_dir, train, val):
     from vfloodnet_tpu_torch.parallel import make_mesh
     torch.set_num_threads(2)
     return image_loop(make_mesh(), log_dir, train, val)
+
+
+# -- the video trainer's model axis ---------------------------------------
+
+def _perturb_first_bn(model):
+    """Scale the first BatchNorm's output by 1 + 2**-45: a rank whose
+    replicated work differs in its last bits, as a card's
+    non-deterministic kernels make it."""
+    from vfloodnet_tpu_torch.models import TrainBN
+    bn = next(m for m in model.modules() if isinstance(m, TrainBN))
+    bn.register_forward_hook(lambda mod, args, out: out * (1 + 2.0 ** -45))
+
+
+def _split_digests(model, sharded, opt=None):
+    """Hashes of the replicated tensors (weights, statistics and, given
+    ``opt``, AdamW moments) and of the slices of ``sharded``."""
+    replicated, shards = {}, {}
+    for n, t in model.state_dict().items():
+        (shards if n in sharded else replicated)[n] = t
+    for n in (opt.mu if opt is not None else ()):
+        (shards if n in sharded else replicated).update(
+            {n + ".mu": opt.mu[n], n + ".nu": opt.nu[n]})
+    return _digest(replicated), _digest(shards)
+
+
+def tp_video_step(mesh, frames, masks, steps=1, keep=(), perturb=False):
+    """``steps`` float64 video steps of the bundled weights (live BN) on
+    the global batch, with the state laid out over the mesh's model axis
+    (plain without a mesh; with ``perturb``, :func:`_perturb_first_bn`).
+    Returns the losses; for each step, the model's and the optimiser's
+    state gathered whole (by every rank) if its index is in ``keep``,
+    else None; the names of the sharded parameters; and
+    :func:`_split_digests`."""
+    from vfloodnet_tpu_torch.train import train_video as tv
+    model = video_form()
+    cfg = tv.VideoTrainConfig(lr=1e-4, update_bn=True)
+    opt = tv.init_video_train_state(model, cfg)
+    if mesh is not None:
+        tv.shard_train_state(model, opt, mesh)
+    if perturb:
+        _perturb_first_bn(model)
+    step = tv.make_video_train_step(model, opt, cfg, mesh=mesh)
+    losses, states = [], []
+    for i in range(steps):
+        losses.append(float(step(*(torch.from_numpy(x).double()
+                                   for x in (frames, masks)))))
+        states.append(None)
+        if i in keep:
+            model_state, opt_state = tv.gather_train_state(model, opt)
+            states[-1] = ({n: t.clone() for n, t in model_state.items()},
+                          {k: {n: t.clone() for n, t in opt_state[k].items()}
+                           for k in ("mu", "nu")})
+    return (losses, states, sorted(opt.sharded),
+            *_split_digests(model, opt.sharded, opt))
+
+
+def tp_pair_rank(rank, world, frames, masks, images, image_masks):
+    """At mesh (1, 2): two video steps of the clips, model rank 1
+    perturbed (:func:`_perturb_first_bn`; rank 0 returns the state after
+    the second), and one float64 image step with live BN
+    (:func:`image_steps`)."""
+    from vfloodnet_tpu_torch.parallel import MODEL_AXIS, make_mesh
+    mesh = make_mesh((1, 2))
+    video = tp_video_step(mesh, frames, masks, steps=2, keep=(1,),
+                          perturb=mesh.index(MODEL_AXIS) == 1)
+    if rank:    # every rank gathers the state; rank 0 returns it
+        video = (video[0], None) + video[2:]
+    return {"video": video,
+            "image": image_steps(mesh, images, image_masks, True, steps=1,
+                                 full=rank == 0)}
+
+
+class ArrayClips:
+    """A dataset of clips held in two arrays, two objects each."""
+
+    def __init__(self, frames, masks):
+        self.frames, self.masks = frames, masks
+
+    def __len__(self):
+        return len(self.frames)
+
+    def get(self, idx, epoch=0):
+        return self.frames[idx], self.masks[idx], 2
+
+
+def tp_loop_rank(rank, world, frames, masks, log_dir):
+    """At mesh (2, 2): one epoch of ``run_video_training`` of the float64
+    bundled weights (live BN) on the clips in one batch, a clip a data
+    rank: one step, as :func:`tp_video_step` takes it. Rank 0 writes
+    ``final.pt`` and ``metrics.jsonl`` into ``log_dir``; every rank
+    returns the names of the sharded parameters and
+    :func:`_split_digests` of its weights and statistics."""
+    from vfloodnet_tpu_torch.parallel import make_mesh
+    from vfloodnet_tpu_torch.train import (VideoTrainConfig,
+                                           run_video_training)
+    cfg = VideoTrainConfig(lr=1e-4, update_bn=True, clip_n=3, max_obj_n=2,
+                           output_size=32, epochs=1)
+    model = video_form()
+    run_video_training(model, cfg, ArrayClips(frames.astype(np.float64),
+                                              masks.astype(np.float64)),
+                       str(log_dir), batch_size=len(frames),
+                       mesh=make_mesh((2, 2)))
+    sharded = sorted(f"{n}.weight" for n, m in model.named_modules()
+                     if hasattr(m, "model_group"))
+    return (sharded, *_split_digests(model, sharded))

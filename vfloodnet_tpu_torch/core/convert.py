@@ -1,6 +1,6 @@
 """Weight bridge: the JAX package's AFB-URR, LinkNet (both layouts),
-Generalized R-CNN and body-mesh (``BodyMeshRegressor``, ``METRONetwork``)
-variables -> the port's ``state_dict``, and the training forms'
+Generalized R-CNN, body-mesh (``BodyMeshRegressor``, ``METRONetwork``)
+and PSPNet variables -> the port's ``state_dict``, and the training forms'
 ``state_dict`` back to the JAX flat layout (``export_*_variables``).
 
 With ``trainable_bn`` a converter fills a training form instead, whose
@@ -309,6 +309,52 @@ def export_rcnn_variables(state_dict: Dict[str, torch.Tensor]
             return np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1))
         return None
     return _export(state_dict, lambda p: p.replace(".", "/"), kernel)
+
+
+def convert_pspnet_variables(variables: Dict[str, Any],
+                             trainable_bn: bool = False
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``PSPNet`` variables (a flat npz, or the Flax tree
+    as numpy) -> a ``state_dict`` for
+    :class:`vfloodnet_tpu_torch.models.pspnet.PSPNet`, whose module names
+    are the Flax ones (``/`` -> ``.``). Conv kernels go from HWIO to OIHW;
+    FrozenBN folds ``scale`` and the running ``var`` into ``weight = scale
+    / sqrt(var + 1e-5)`` (kept unfolded with ``trainable_bn``, for
+    ``PSPNet(norm=TrainBN)``; the inverse is
+    :func:`export_pspnet_variables`). Every Flax array is used exactly
+    once; a key left over raises."""
+    flat = flatten(variables)
+    out: Dict[str, np.ndarray] = {}
+    used = set()
+    for key in sorted(flat):
+        if not key.startswith("params/"):
+            continue
+        path, leaf = key[len("params/"):].rsplit("/", 1)
+        port = path.replace("/", ".")
+        arr = np.asarray(flat[key], np.float32)
+        used.add(key)
+        if leaf == "kernel" and arr.ndim == 4:
+            out[port + ".weight"] = _oihw(arr)
+        elif leaf == "bias":
+            out[port + ".bias"] = arr
+        elif leaf == "scale":          # FrozenBN
+            out.update(_bn(flat, path, port + ".", arr, trainable_bn))
+            used.update((f"batch_stats/{path}/var",
+                         f"batch_stats/{path}/mean"))
+        else:
+            raise KeyError(f"unexpected Flax array {key}")
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{len(left)} Flax arrays not converted: {left[:5]}")
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
+
+
+def export_pspnet_variables(state_dict: Dict[str, torch.Tensor]
+                            ) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_pspnet_variables(..., trainable_bn=True)``:
+    a ``PSPNet(norm=TrainBN)`` ``state_dict`` -> the JAX flat layout."""
+    return _export(state_dict, lambda p: p.replace(".", "/"))
 
 
 def _mesh_port_path(path: str) -> str:

@@ -6,7 +6,8 @@
   resizes it: separably, with the dense [out, in] tap matrices rounded to
   bf16, float32 accumulation, and each pass's result stored in bf16.
 - ``nearest``: JAX's half-pixel nearest, ``src = floor((i + 0.5) * in / out)``
-  computed in float32 as ``jax.image.resize`` does. Used by the device
+  computed in float32 as ``jax.image.resize`` compiles it, with ``in / out``
+  folded to ``in * (1 / out)``. Used by the device
   largest-CC cleanup.
 - ``nearest_torch``: floor indexing, ``src = floor(i * (in / out))`` in
   float64, as the JAX package computes it. Used for the first-mask downsize.
@@ -69,8 +70,11 @@ def short_side_size(h: int, w: int, target: int) -> Tuple[int, int]:
 
 def _nearest_index(n_in: int, n_out: int, method: str) -> np.ndarray:
     if method == "nearest":
-        src = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
-            * np.float32(n_in) / np.float32(n_out)
+        # XLA folds JAX's (i + 0.5) * in / out into one product by the
+        # float32 constant in * (1 / out)
+        f32 = np.float32
+        step = f32(n_in) * (f32(1) / f32(n_out))
+        src = (np.arange(n_out, dtype=f32) + f32(0.5)) * step
         return np.minimum(np.floor(src).astype(np.int64), n_in - 1)
     return np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
 
@@ -178,7 +182,7 @@ def _bilinear(x: torch.Tensor, out_hw, h_ax: int, w_ax: int,
     return y.to(x.dtype)
 
 
-def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
+def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bilinear",
            spatial_axes: Tuple[int, int] = (-3, -2),
            antialias: bool = False) -> torch.Tensor:
     """Resize the two spatial axes of ``x`` (default NHWC) to ``out_hw``.
@@ -211,6 +215,18 @@ def resize(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "bicubic",
                       align_corners=False)
     y = y.reshape(lead + tuple(out_hw))
     return y.movedim((-2, -1), (h_ax, w_ax))
+
+
+def resize_short_side(x: torch.Tensor, target: int, method: str = "bilinear",
+                      spatial_axes: Tuple[int, int] = (-3, -2),
+                      antialias: bool = False) -> torch.Tensor:
+    """:func:`resize` with the short side at ``target`` and the long side
+    as :func:`short_side_size` makes it."""
+    h_ax = spatial_axes[0] % x.ndim
+    w_ax = spatial_axes[1] % x.ndim
+    out_hw = short_side_size(x.shape[h_ax], x.shape[w_ax], target)
+    return resize(x, out_hw, method=method, spatial_axes=spatial_axes,
+                  antialias=antialias)
 
 
 def _cv2_taps(n_in: int, n_out: int, clamp: bool):

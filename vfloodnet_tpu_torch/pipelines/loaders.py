@@ -5,15 +5,17 @@ from __future__ import annotations
 
 import copy
 import os
+import warnings
 from typing import Optional
 
 import torch
 
 from ..core import (convert_afb_urr_variables, convert_linknet_variables,
-                    load_flat_npz, resolve_device)
+                    convert_pspnet_variables, load_flat_npz, resolve_device)
 from ..core.convert_ref import read_afb_urr_pth, read_smp_linknet_pth
 from ..models import AFBURR, LinkNet
 from ..models.linknet_smp import LinkNetSMP
+from ..models.pspnet import PSPNet, seeded_init
 
 _RECORDS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "records", "checkpoints")
@@ -73,6 +75,30 @@ def load_linknet(model_path: Optional[str] = None, device="cuda",
     else:
         raise ValueError(f"expected a flat .npz or an smp .pth "
                          f"checkpoint, got {model_path}")
+    return model.to(device).eval()
+
+
+def load_pspnet(model_path: str, num_classes: int = 56, device="cuda",
+                dtype: torch.dtype = torch.float32) -> PSPNet:
+    """The Atlantis PSPNet computing in ``dtype`` on ``device``, in eval
+    mode, with weights from a flat ``.npz`` of the JAX package's
+    variables (the layout of ``records/checkpoints/*/best.npz``). Where
+    ``model_path`` does not exist, a warning and the seeded weights of
+    :func:`..models.pspnet.seeded_init` from seed 0 (the JAX harness
+    warns and initialises from ``PRNGKey(0)``). A directory (an orbax
+    checkpoint) or another suffix raises."""
+    device = resolve_device(device)
+    model = PSPNet(num_classes=num_classes, dtype=dtype)
+    if not os.path.exists(model_path):
+        warnings.warn(f"No checkpoint at {model_path}; seeded init "
+                      "(seed 0).")
+        seeded_init(model, 0)
+    elif model_path.endswith(".npz") and os.path.isfile(model_path):
+        model.load_state_dict(convert_pspnet_variables(
+            load_flat_npz(model_path)))
+    else:
+        raise ValueError(f"expected a flat .npz checkpoint, got "
+                         f"{model_path} (orbax folders are not read)")
     return model.to(device).eval()
 
 

@@ -47,7 +47,7 @@ class ShardedVideoSegEngine(VideoSegEngine):
     The model must sit on the mesh's device."""
 
     def __init__(self, model: AFBURR, fb: FeatureBank, mesh: Mesh,
-                 downsample: int = 480, postprocess="auto",
+                 downsample: int = 480, postprocess="none",
                  cc_scale: int = 16):
         super().__init__(model, fb, downsample=downsample,
                          postprocess=postprocess, cc_scale=cc_scale,

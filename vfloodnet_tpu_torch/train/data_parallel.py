@@ -11,8 +11,14 @@ those of the global batch: the image trainer's BNs all-reduce their sums
 in the forward pass (``TrainBN.group``); the video trainer's are per clip,
 and their running updates are averaged over the ranks' clips.
 
-JAX's tensor-parallel layout of the trainers' conv kernels over the
-``model`` axis is not ported: a mesh with a model axis > 1 raises.
+The ranks of a ``model`` axis share a data index: they take the same
+share of the batch, and the video trainer lays its conv kernels out over
+them (``train_video.shard_train_state``, :mod:`.model_parallel`); the
+image trainer computes replicated over them, as JAX's does. What they
+compute replicated may differ in its last bits from rank to rank
+(cuDNN's backward is not deterministic), so its gradients and running
+statistics are averaged over the model group as well, and the
+replicated state stays equal on every rank.
 
 :func:`spawn_ranks` starts one rank per GPU (or two CPU processes) and
 joins them, for the trainers' ``--data-parallel``.
@@ -30,13 +36,6 @@ from ..parallel import (DATA_AXIS, MODEL_AXIS, Mesh, close_world, init_rank,
                         make_mesh)
 
 
-def check_training_mesh(mesh: Mesh) -> None:
-    if mesh.size(MODEL_AXIS) != 1:
-        raise NotImplementedError(
-            f"training over a model axis of {mesh.size(MODEL_AXIS)}: the "
-            "conv kernels' tensor-parallel layout is not ported")
-
-
 def data_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's contiguous share of the global batch ``x`` along axis
     0; the batch must divide by the data axis."""
@@ -48,21 +47,23 @@ def data_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x[d * per:(d + 1) * per]
 
 
-def mean_over_data(tensors: List[torch.Tensor], mesh: Mesh
-                   ) -> List[torch.Tensor]:
-    """Each tensor's mean over the data group (new tensors, detached), in
-    one all-reduce of their concatenation; the tensors share a dtype."""
+def mean_over_group(tensors: List[torch.Tensor], group
+                    ) -> List[torch.Tensor]:
+    """Each tensor's mean over the process ``group`` (a mesh's data or
+    model group; new tensors, detached), in one all-reduce of their
+    concatenation; the tensors share a dtype."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.all_reduce(flat, dist.ReduceOp.SUM, group=mesh.data_group)
-    flat /= mesh.size(DATA_AXIS)
+    dist.all_reduce(flat, dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
     return [x.view_as(t) for x, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def average_grads(params: Iterable[torch.Tensor], mesh: Mesh) -> None:
-    """Each parameter's ``.grad`` set to its mean over the data group."""
+def average_grads(params: Iterable[torch.Tensor], group) -> None:
+    """Each parameter's ``.grad`` set to its mean over ``group``."""
     params = [p for p in params if p.grad is not None]
-    for p, g in zip(params, mean_over_data([p.grad for p in params], mesh)):
+    for p, g in zip(params, mean_over_group([p.grad for p in params],
+                                            group)):
         p.grad.copy_(g)
 
 

@@ -13,7 +13,9 @@ the sources into the log directory; the image loop plots its curves.
 With a ``mesh`` (:mod:`.data_parallel`) every rank of the world runs the
 loop over the same global batches and takes the data-parallel step and
 its share of each validation batch; only rank 0 prints, logs and writes
-checkpoints.
+checkpoints. The video loop lays its state out over a ``model`` axis
+larger than one (``train_video.shard_train_state``, after a resume) and
+gathers it whole for each checkpoint, so a run resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -30,18 +32,21 @@ from ..core.convert import (export_afb_urr_variables,
                             export_linknet_variables)
 from ..data import BatchLoader
 from ..utils import AvgMeter, MetricWriter, gct, save_scripts
+from ..parallel import MODEL_AXIS
 from .data_parallel import (broadcast_model, data_shard, is_writer,
-                            mean_over_data)
+                            mean_over_group)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _save(path: str, model, opt, step: int, epoch: int) -> None:
-    """``{"model", "optimizer", "step", "epoch"}`` through a temporary file
-    renamed into place."""
+def _save(path: str, state, step: int, epoch: int) -> None:
+    """``{"model", "optimizer", "step", "epoch"}`` from ``state``, the
+    (model, optimiser) state dicts, through a temporary file renamed into
+    place."""
+    model_state, opt_state = state
     tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
+    torch.save({"model": model_state, "optimizer": opt_state,
                 "step": step, "epoch": epoch}, tmp)
     os.replace(tmp, path)
 
@@ -81,7 +86,8 @@ def run_video_training(model, cfg, dataset, log_dir: str,
     restarts at epoch ``step // steps_per_epoch``. With a ``mesh`` each
     batch of ``batch_size`` clips is split over its data axis. Returns the
     path of ``best.npz``."""
-    from .train_video import init_video_train_state, make_video_train_step
+    from .train_video import (gather_train_state, init_video_train_state,
+                              make_video_train_step, shard_train_state)
 
     writer = is_writer(mesh)
     os.makedirs(log_dir, exist_ok=True)
@@ -93,6 +99,8 @@ def run_video_training(model, cfg, dataset, log_dir: str,
     opt = init_video_train_state(model, cfg, steps_per_epoch)
     start_epoch = _resume(resume, model, opt, steps_per_epoch)
     if mesh is not None:
+        if mesh.size(MODEL_AXIS) > 1:
+            shard_train_state(model, opt, mesh)
         broadcast_model(model, mesh)
     step_fn = make_video_train_step(model, opt, cfg, mesh=mesh)
     say = print if writer else (lambda *a: None)
@@ -117,16 +125,15 @@ def run_video_training(model, cfg, dataset, log_dir: str,
                 f"({dt:.1f}s)")
             metrics.write("epoch", step=opt.count, loss=meter.avg,
                           epoch=epoch, seconds=dt)
+            state = gather_train_state(model, opt)
             if not writer:
                 continue
-            _save(os.path.join(log_dir, "final.pt"), model, opt, opt.count,
-                  epoch)
+            _save(os.path.join(log_dir, "final.pt"), state, opt.count, epoch)
             if meter.avg < best_loss:
                 best_loss = meter.avg
-                _save(os.path.join(log_dir, "best.pt"), model, opt,
-                      opt.count, epoch)
-                save_flat_npz(best_npz,
-                              export_afb_urr_variables(model.state_dict()))
+                _save(os.path.join(log_dir, "best.pt"), state, opt.count,
+                      epoch)
+                save_flat_npz(best_npz, export_afb_urr_variables(state[0]))
     return best_npz
 
 
@@ -190,12 +197,12 @@ def run_image_training(model, cfg, dataset, log_dir: str,
                           select_iou=select_iou)
             if not writer:
                 continue
-            _save(os.path.join(log_dir, "final.pt"), model, opt, opt.count,
-                  epoch)
+            state = (model.state_dict(), opt.state_dict())
+            _save(os.path.join(log_dir, "final.pt"), state, opt.count, epoch)
             if select_iou > best_iou:
                 best_iou = select_iou
-                _save(os.path.join(log_dir, "best.pt"), model, opt,
-                      opt.count, epoch)
+                _save(os.path.join(log_dir, "best.pt"), state, opt.count,
+                      epoch)
                 save_flat_npz(best_npz,
                               export_linknet_variables(model.state_dict()))
     if writer:
@@ -220,7 +227,7 @@ def _val_iou(model, loader, batch_size: int, upload, mesh) -> float:
             images, masks = data_shard(images, mesh), data_shard(masks, mesh)
         ious.append(iou_metric(model(images)[..., 0], masks))
     if mesh is not None and ious:
-        ious = mean_over_data([torch.stack(ious)], mesh)[0]
+        ious = mean_over_group([torch.stack(ious)], mesh.data_group)[0]
     meter = AvgMeter()
     for iou in ious:
         meter.update(float(iou))

@@ -29,8 +29,8 @@ import torch.nn as nn
 from ..core import resolve_device
 from ..models import LinkNet
 from ..models.resnet import TrainBN
-from .data_parallel import (average_grads, check_training_mesh, data_shard,
-                            mean_over_data)
+from ..parallel import MODEL_AXIS
+from .data_parallel import average_grads, data_shard, mean_over_group
 from .train_video import AdamWClip, _pass_stats, _variance_scaling_, \
     batch_norms
 
@@ -107,12 +107,17 @@ def make_image_train_step(model: LinkNet, opt: AdamWClip,
     share of the images; live statistics are the global batch's (the BNs
     all-reduce their sums over the data group), and the gradients, the
     loss and the IoU are averaged over it, so every rank takes the global
-    batch's step."""
+    batch's step. The ranks of a ``model`` axis compute the same images,
+    replicated, as the JAX image step does (it shards no parameter)."""
     bns = batch_norms(model)
-    group = None
-    if mesh is not None:
-        check_training_mesh(mesh)
-        group = mesh.data_group
+    group = None if mesh is None else mesh.data_group
+    # gradients and loss are averaged over the data group, and over a
+    # model axis larger than one over the model group too, as are the
+    # running statistics: its ranks compute the same images, and their
+    # results may differ in the last bits (cuDNN's backward is not
+    # deterministic), so the averages keep their weights equal
+    groups = [] if mesh is None else [group] + (
+        [mesh.model_group] if mesh.size(MODEL_AXIS) > 1 else [])
 
     def step(images: torch.Tensor, masks: torch.Tensor):
         if mesh is not None:
@@ -127,9 +132,9 @@ def make_image_train_step(model: LinkNet, opt: AdamWClip,
         iou = iou_metric(prob.detach(), masks)
         stats = _pass_stats(bns) if update_bn else None
         loss.backward()
-        if mesh is not None:
-            average_grads(opt.params.values(), mesh)
-            loss, iou = mean_over_data([loss, iou], mesh)
+        for over in groups:
+            average_grads(opt.params.values(), over)
+            loss, iou = mean_over_group([loss, iou], over)
         opt.step()
         with torch.no_grad():
             for i, bn in enumerate(bns):
@@ -137,6 +142,11 @@ def make_image_train_step(model: LinkNet, opt: AdamWClip,
                 if stats is not None:
                     bn.mean.copy_(stats[i][0])
                     bn.var.copy_(stats[i][1])
+            if stats is not None and len(groups) > 1:
+                buffers = [t for bn in bns for t in (bn.mean, bn.var)]
+                for t, m in zip(buffers, mean_over_group(buffers,
+                                                         groups[1])):
+                    t.copy_(m)
         return loss.detach(), iou
     return step
 

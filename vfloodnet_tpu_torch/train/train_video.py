@@ -13,6 +13,14 @@ device; the CUDA read and count kernels are forward-only and serve
 inference. The optimiser is written out to give optax's numbers
 (:class:`AdamWClip`); the schedule counts optimiser steps as optax's does.
 
+With a mesh whose ``model`` axis is larger than one, the conv kernels
+are laid out over it as the JAX trainer lays them
+(:func:`param_sharding_rules`, :func:`shard_train_state`): each model
+rank keeps a slice of their output channels and of its moments, and the
+convolutions run column-parallel (:mod:`.model_parallel`). No CLI builds
+such a mesh (the JAX CLIs' meshes are (n, 1) too); the steps and loops
+take it as ``mesh=``.
+
 Run ``python -m vfloodnet_tpu_torch.train.train_video --dataset ROOT
 [--device cpu] [--data-parallel]`` (the flags of the root
 ``train_video_seg.py``; ``--data-parallel`` starts one rank per GPU,
@@ -30,14 +38,17 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device
+from ..core.convert import KEYDIM
 from ..models import AFBURR
 from ..models.resnet import TrainBN
-from .data_parallel import (average_grads, check_training_mesh, data_shard,
-                            mean_over_data)
+from ..parallel import MODEL_AXIS, Mesh
+from .data_parallel import average_grads, data_shard, mean_over_group
+from .model_parallel import gather_shards, make_column_parallel
 
 BN_MOMENTUM = 0.9
 
@@ -194,6 +205,10 @@ class AdamWClip:
         self.count = 0
         self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        # parameters held as slices over a model group
+        # (:func:`shard_train_state`): the clip's norm sums them over it
+        self.sharded: tuple = ()
+        self.model_group = None
 
     @torch.no_grad()
     def step(self, grads: Optional[Dict[str, torch.Tensor]] = None) -> None:
@@ -204,7 +219,15 @@ class AdamWClip:
         g = [grads[n] for n in names] if grads is not None \
             else [q.grad for q in p]
         if self.grad_clip:
-            norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+            sq = torch.stack(torch._foreach_norm(g)).square()
+            if self.model_group is not None:
+                idx = torch.tensor([names.index(n) for n in self.sharded],
+                                   device=sq.device)
+                part = sq.index_select(0, idx)
+                dist.all_reduce(part, dist.ReduceOp.SUM,
+                                group=self.model_group)
+                sq = sq.index_copy(0, idx, part)
+            norm = sq.sum().sqrt()
             keep = norm < self.grad_clip
             g = [torch.where(keep, x, x / norm * self.grad_clip) for x in g]
         b1, b2 = self.B1, self.B2
@@ -246,6 +269,69 @@ def init_video_train_state(model: AFBURR, cfg: VideoTrainConfig,
                      cfg.weight_decay, cfg.grad_clip)
 
 
+def param_sharding_rules(mesh: Mesh) -> Callable[[str, torch.Tensor], bool]:
+    """``rule(name, param)``: whether the AFB-URR parameter ``name`` is
+    sharded over the mesh's ``model`` axis of size m, the JAX rule: a 4-D
+    conv kernel whose output channels divide by m; everything else is
+    replicated. The fused key-value conv (JAX's ``key`` and ``value``
+    kernels, 128 and 512 channels) is sharded when both of JAX's are, and
+    an m that shards one of them alone raises; the 5-plane memory stem
+    is JAX's three 64-channel stems."""
+    m = mesh.size(MODEL_AXIS)
+
+    def rule(name: str, param: torch.Tensor) -> bool:
+        if name == "keyval_r4.conv.weight":
+            key, value = KEYDIM % m == 0, (param.shape[0] - KEYDIM) % m == 0
+            if key != value:
+                raise ValueError(f"a model axis of {m} shards one of the "
+                                 "key and value kernels alone")
+            return key
+        return param.ndim == 4 and param.shape[0] % m == 0
+    return rule
+
+
+def shard_train_state(model: AFBURR, opt: AdamWClip, mesh: Mesh) -> None:
+    """Lay ``model`` and ``opt`` out over the mesh's ``model`` axis, in
+    place: each kernel that :func:`param_sharding_rules` picks keeps this
+    rank's contiguous slice of its output channels, its AdamW moments the
+    same slice, and its convolution runs column-parallel over the model
+    group (:func:`.model_parallel.make_column_parallel`). Call it on every
+    rank, on full and equal weights (after a resume)."""
+    rule = param_sharding_rules(mesh)
+    size, index = mesh.size(MODEL_AXIS), mesh.index(MODEL_AXIS)
+    modules = dict(model.named_modules())
+    sharded = []
+    for name, param in list(model.named_parameters()):
+        if not rule(name, param):
+            continue
+        conv = modules[name.rsplit(".", 1)[0]]
+        part = make_column_parallel(conv, mesh.model_group, index, size)
+        opt.params[name] = conv.weight
+        opt.mu[name] = opt.mu[name][part].clone()
+        opt.nu[name] = opt.nu[name][part].clone()
+        sharded.append(name)
+    opt.sharded = tuple(sharded)
+    opt.model_group = mesh.model_group
+
+
+def gather_train_state(model: AFBURR, opt: AdamWClip):
+    """``(model state_dict, optimiser state)`` with every sharded tensor
+    gathered whole over the model group (every rank of it calls this);
+    unsharded, the model's and the optimiser's own."""
+    state, opt_state = model.state_dict(), opt.state_dict()
+    if opt.model_group is None:
+        return state, opt_state
+    names = list(opt.sharded)
+    full = gather_shards([state[n] for n in names]
+                         + [opt.mu[n] for n in names]
+                         + [opt.nu[n] for n in names], opt.model_group)
+    k = len(names)
+    state.update(zip(names, full[:k]))
+    opt_state["mu"] = dict(opt.mu, **dict(zip(names, full[k:2 * k])))
+    opt_state["nu"] = dict(opt.nu, **dict(zip(names, full[2 * k:])))
+    return state, opt_state
+
+
 def make_video_train_step(model: AFBURR, opt: AdamWClip,
                           cfg: VideoTrainConfig, mesh=None) -> Callable:
     """``step(frames, masks) -> loss`` (a detached 0-d tensor on the
@@ -257,10 +343,15 @@ def make_video_train_step(model: AFBURR, opt: AdamWClip,
     calls the step with the same global batch and computes its contiguous
     share of the clips; the gradients, the loss and the running statistics
     (per clip, as without a mesh) are averaged over the data group, so
-    every rank takes the global batch's step."""
+    every rank takes the global batch's step. A mesh with a ``model``
+    axis larger than one needs the state laid out over it first
+    (:func:`shard_train_state`); the ranks of a model group then compute
+    the same clips, column-parallel."""
     bns = batch_norms(model)
-    if mesh is not None:
-        check_training_mesh(mesh)
+    if mesh is not None and mesh.size(MODEL_AXIS) > 1 \
+            and opt.model_group is None:
+        raise ValueError(f"a model axis of {mesh.size(MODEL_AXIS)} needs "
+                         "shard_train_state before the step")
 
     def step(frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         if mesh is not None:
@@ -271,11 +362,21 @@ def make_video_train_step(model: AFBURR, opt: AdamWClip,
                                       remat=cfg.remat,
                                       update_bn=cfg.update_bn)
         loss.backward()
-        if mesh is not None:
-            average_grads(opt.params.values(), mesh)
-            loss, = mean_over_data([loss], mesh)
+        # over the data group every gradient; over the model group the
+        # replicated ones, whose ranks' copies may differ in their last
+        # bits (cuDNN's backward is not deterministic): so the replicated
+        # state stays equal on every rank
+        syncs = [] if mesh is None else [(mesh.data_group,
+                                          list(opt.params.values()))]
+        if opt.model_group is not None:
+            syncs.append((opt.model_group,
+                          [p for n, p in opt.params.items()
+                           if n not in opt.sharded]))
+        for group, params in syncs:
+            average_grads(params, group)
+            loss, = mean_over_group([loss], group)
             if stats is not None:
-                stats = mean_over_data(stats, mesh)
+                stats = mean_over_group(stats, group)
         opt.step()
         with torch.no_grad():
             for i, bn in enumerate(bns):
